@@ -1,0 +1,13 @@
+from .trainer import (
+    TrainState,
+    create_train_state,
+    init_weights,
+    make_forward,
+    make_optimizer,
+    make_train_step,
+)
+
+__all__ = [
+    "TrainState", "create_train_state", "init_weights", "make_forward", "make_optimizer",
+    "make_train_step",
+]

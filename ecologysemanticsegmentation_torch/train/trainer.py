@@ -1,0 +1,156 @@
+"""Train step, train state and inference forward (PyTorch port of
+``ecologysemanticsegmentation_tpu/train/trainer.py``), for the flagship
+path: DeepLabV3+ with ``upsample_head=False`` and the fused low-resolution
+head loss.
+
+On a CUDA device the model runs under bf16 autocast with float32 parameters
+(the JAX package's bf16-compute/f32-params); on the CPU it runs in float32,
+which is how the tests hold it against the JAX package's float32 model.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from typing import Callable
+
+import torch
+from torch import nn
+
+from ..losses import LOSS_NAMES, return_union_sets_descending_order, seven_losses_lowres
+from ..models.common import BatchNorm2d
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The JAX ``TrainState``'s counterpart: the model holds the parameters
+    and the BatchNorm statistics, the optimizer holds Adam's moments."""
+
+    step: int
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+
+
+def make_optimizer(lr: float = 3e-4) -> Callable[..., torch.optim.Optimizer]:
+    """Adam with optax's defaults (b1 0.9, b2 0.999, eps 1e-8), as a factory
+    of parameters; the train step sets the learning rate on every call."""
+    return functools.partial(torch.optim.Adam, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+
+def _truncated_normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> None:
+    """flax ``lecun_normal``: a normal truncated to +-2 std (inverse-CDF draw)."""
+    lo, hi = math.erf(-2 / math.sqrt(2)), math.erf(2 / math.sqrt(2))
+    draw = torch.empty(t.shape).uniform_(lo, hi, generator=generator)
+    draw.erfinv_().mul_(std * math.sqrt(2)).clamp_(-2 * std, 2 * std)
+    t.copy_(draw)
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, generator: torch.Generator) -> None:
+    """Re-initialize ``model`` as flax's ``model.init`` does: conv kernels
+    lecun-normal (variance 1/fan_in, truncated), conv biases 0, BatchNorm
+    scale 1, bias 0, mean 0, var 1.  Draws on the host from ``generator``, so
+    one seed gives the same weights on every device."""
+    for m in model.modules():
+        if isinstance(m, nn.Conv2d):
+            fan_in = m.weight[0].numel()
+            _truncated_normal_(m.weight, math.sqrt(1.0 / fan_in) / .87962566103423978, generator)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, BatchNorm2d):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+            m.running_mean.zero_()
+            m.running_var.fill_(1.0)
+
+
+def create_train_state(model: nn.Module, generator: torch.Generator,
+                       tx: Callable[..., torch.optim.Optimizer]) -> TrainState:
+    """Initialize ``model`` from ``generator`` (a seeded CPU generator) and
+    build its optimizer with ``tx`` (:func:`make_optimizer`)."""
+    init_weights(model, generator)
+    return TrainState(step=0, model=model, optimizer=tx(model.parameters()))
+
+
+def _prepare_labels(labels: torch.Tensor) -> torch.Tensor:
+    """Binarize positives, then the union-set transform."""
+    labels = torch.where(labels > 0, 1.0, labels)
+    return return_union_sets_descending_order(labels)
+
+
+def _autocast(device: torch.device):
+    return torch.autocast(device.type, dtype=torch.bfloat16, enabled=device.type == "cuda")
+
+
+def make_train_step(model: nn.Module, tx, augment: bool = False,
+                    lowres_head: bool = True) -> Callable:
+    """The flagship train step.
+
+    ``step(state, batch, rng, bg_weight, gates3, lr, jitters) -> (state, metrics)``
+    with ``batch = {"image": (B, H, W, 3), "label": (B, H, W, C)}`` NHWC,
+    ``rng`` a ``torch.Generator`` on the model's device (ASPP dropout),
+    ``gates3 = [focal_dice_w, bce_w, generalized_dice_w]``.  ``bg_weight``
+    and ``jitters`` are accepted for the JAX signature and unused on this
+    path (multi-organ drops the background weight; no composite loss).
+    ``state`` is updated in place and returned.  ``tx`` is consumed by
+    :func:`create_train_state`, which puts the optimizer in the state."""
+    if augment:
+        raise NotImplementedError(
+            "device augmentation is not ported yet (ROADMAP queue 1, item 5)")
+    if not lowres_head:
+        raise NotImplementedError(
+            "the full-resolution loss path needs the loss_sums kernel, not ported yet "
+            "(ROADMAP queue 2, item 3)")
+    del tx
+
+    def step(state: TrainState, batch, rng, bg_weight, gates3, lr, jitters):
+        del bg_weight, jitters
+        if state.model is not model:
+            raise ValueError("state was created for another model")
+        param = next(model.parameters())
+        dev = param.device
+        labels = _prepare_labels(torch.as_tensor(batch["label"], device=dev))
+        # Images are rounded to bf16 before the model, as in the JAX step.
+        images = torch.as_tensor(batch["image"], device=dev).to(torch.bfloat16).to(param.dtype)
+        gates = torch.as_tensor(gates3, dtype=torch.float32, device=dev)
+
+        model.train()
+        with _autocast(dev):
+            out = model(images, generator=rng)
+        seven = seven_losses_lowres(out, labels)
+        loss = gates[0] * seven[6] + gates[1] * seven[1] + gates[2] * (seven[4] + seven[5])
+
+        opt = state.optimizer
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        for group in opt.param_groups:
+            group["lr"] = float(lr)
+        opt.step()
+        state.step += 1
+
+        metrics = {name: seven[i].detach() for i, name in enumerate(LOSS_NAMES)}
+        metrics["loss"] = loss.detach()
+        metrics["lr"] = torch.tensor(float(lr), dtype=torch.float32, device=dev)
+        return state, metrics
+
+    return step
+
+
+def make_forward(model: nn.Module) -> Callable:
+    """Inference forward: ``forward(state, images) -> sigmoid probabilities``
+    (NHWC, float32).  ``state`` is accepted for the JAX signature; the model
+    holds its weights."""
+
+    @torch.no_grad()
+    def forward(state, images):
+        del state
+        param = next(model.parameters())
+        dev = param.device
+        x = torch.as_tensor(images, device=dev).to(torch.bfloat16).to(param.dtype)
+        model.eval()
+        with _autocast(dev):
+            out = model(x)
+        return torch.sigmoid(out.float())
+
+    return forward

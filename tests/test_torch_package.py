@@ -1,0 +1,126 @@
+"""Package-level checks of the PyTorch port (ecologysemanticsegmentation_torch).
+
+* The port and chip_smoke.py import neither JAX nor the JAX package.
+* Entry points run on CUDA by default and raise without a card unless the
+  caller passes ``device="cpu"``.
+* The head-loss wrapper rejects what its kernel does not take.
+* ``-m gpu`` (on the H100): the CUDA kernels build and agree with their plain
+  versions.  Here, without a card, that test skips.
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import ecologysemanticsegmentation_torch as est
+from ecologysemanticsegmentation_torch.ops import head_loss as hl
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def test_port_imports_no_jax():
+    mods = sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+        for p in (ROOT / "ecologysemanticsegmentation_torch").rglob("*.py"))
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods + ['chip_smoke']!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',\n"
+        "                                    'ecologysemanticsegmentation_tpu'))\n"
+        "assert not bad, bad\n"
+        "print(len(sys.modules))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert len(mods) >= 10
+
+
+def test_entry_points_need_cuda_unless_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        est.resolve_device()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        est.build_model(num_classes=3)
+    assert est.resolve_device("cpu") == torch.device("cpu")
+    model = est.build_model(num_classes=3, upsample_head=False, device="cpu")
+    assert next(model.parameters()).device.type == "cpu"
+    assert model.head.weight.is_contiguous(memory_format=torch.channels_last)
+
+
+def test_build_model_names():
+    with pytest.raises(NotImplementedError):
+        est.build_model("unet", device="cpu")
+    with pytest.raises(ValueError):
+        est.build_model("no_such_model", device="cpu")
+
+
+def test_train_step_scope():
+    model = est.build_model(num_classes=3, upsample_head=False, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        est.make_train_step(model, est.make_optimizer(), augment=True)
+    with pytest.raises(NotImplementedError, match="loss_sums"):
+        est.make_train_step(model, est.make_optimizer(), lowres_head=False)
+
+
+def _ok():
+    return torch.zeros(2, 4, 4, 3), torch.zeros(2, 16, 16, 3, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("bad,err", [
+    (lambda x, g: (x.half(), g), TypeError),                     # logits not f32
+    (lambda x, g: (x, g.float()), TypeError),                    # labels not bf16
+    (lambda x, g: (x[:1], g), ValueError),                       # batch differs
+    (lambda x, g: (x[..., :2], g), ValueError),                  # channels differ
+    (lambda x, g: (x[0], g[0]), ValueError),                     # not NHWC
+    (lambda x, g: (torch.zeros(1, 4, 4, 17),
+                   torch.zeros(1, 16, 16, 17, dtype=torch.bfloat16)), ValueError),  # C > 16
+    (lambda x, g: (x.to("meta"), g.to("meta")), RuntimeError),   # no implementation
+    (lambda x, g: (x.transpose(1, 2), g), ValueError),           # not contiguous
+])
+def test_head_loss_wrapper_rejects(bad, err):
+    with pytest.raises(err):
+        hl.fused_head_loss_sums(*bad(*_ok()))
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: run `pytest -m gpu` on the H100")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,scale,c,align_corners", [
+    (2, 16, 4, 3, True), (3, 16, 4, 1, True), (1, 16, 4, 11, False), (1, 32, 4, 16, True),
+    (2, 12, 3, 2, False),
+])
+def test_cuda_kernels_match_plain(cuda, b, h, scale, c, align_corners):
+    """Forward sums at rtol 1e-4 (f32 sums in another order); dlogits at
+    1e-4 of max |dlogits|; the count row exactly."""
+    rs = np.random.RandomState(0)
+    logits = torch.tensor(rs.randn(b, h, h, c) * 3.0, dtype=torch.float32, device=cuda)
+    labels = (rs.rand(b, h * scale, h * scale, c) > 0.5).astype(np.float32)
+    labels[rs.rand(*labels.shape) < 0.05] = -1.0
+    labels = torch.tensor(labels, device=cuda).to(torch.bfloat16)
+    cot = torch.tensor(rs.randn(8, c), dtype=torch.float32, device=cuda)
+    before = dict(hl.launches)
+    x = logits.clone().requires_grad_()
+    sums = hl.fused_head_loss_sums(x, labels, align_corners)
+    (sums * cot).sum().backward()
+    torch.cuda.synchronize()
+    assert hl.launches["head_loss_fwd"] == before["head_loss_fwd"] + 1
+    assert hl.launches["head_loss_bwd"] == before["head_loss_bwd"] + 1
+    ref = hl.head_sums_reference(logits, labels, align_corners)
+    dref = hl.head_sums_bwd_reference(logits, labels, cot, align_corners)
+    torch.testing.assert_close(sums, ref, rtol=1e-4, atol=1e-3)
+    assert torch.equal(sums[7], (labels >= 0).sum((0, 1, 2)).float())
+    torch.testing.assert_close(x.grad, dref, rtol=0, atol=1e-4 * dref.abs().max().item())
