@@ -8,7 +8,7 @@ exit code before the result line is printed):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build: the CUDA kernels from ``ecologysemanticsegmentation_torch/ops/csrc``
-   with nvcc, one process per source, all started together;
+   with nvcc;
 3. kernels: every kernel against its plain PyTorch version on the card at the
    main path's shapes and at the other shapes it serves, with its time, the
    plain version's time and its bound;
@@ -17,8 +17,10 @@ exit code before the result line is printed):
    ``augment=False, lowres_head=True``, bf16 autocast; the launch counters are
    zeroed just before and read just after, and every kernel of the path must
    have launched; the loss must be finite and fall; a small batch of the same
-   step on the card must agree with the step on the CPU (plain versions, f32);
-   three more steps under torch.profiler give device time by layer.
+   step on the card must agree with the step on the CPU (plain versions, f32).
+
+The device time of the step by layer is not measured here:
+``python3 -m ecologysemanticsegmentation_torch.train.profile_step`` does that.
 
 The line before the last holds the card's name and power limit; the
 ``kernels`` JSON line comes before it; the last line is the device result.
@@ -272,60 +274,7 @@ def run_main_path(card: str) -> dict:
         raise AssertionError(f"train step: loss did not fall ({losses[0]} -> {losses[-1]})")
     if counts != {"head_loss_fwd": steps, "head_loss_bwd": steps}:
         raise AssertionError(f"train step did not run the kernels once per step: {counts}")
-    profile_steps(step, state, batch, rng, gates, card)
     return counts
-
-
-# Kernel-name keywords of each layer, for the profile's breakdown.
-CATEGORIES = [
-    ("head loss (this port's CUDA kernels)",
-     ("fwd_kernel", "bwd_rows_kernel", "bwd_gather_kernel")),
-    ("batch norm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw")),
-    ("convolution (cuDNN / CUTLASS)", ("conv", "xmma", "cutlass", "cudnn", "dgrad", "wgrad",
-                                       "gemm", "sm90_", "nchwtonhwc", "nhwctonchw")),
-    ("optimizer", ("multi_tensor_apply", "adam")),
-    ("reductions", ("reduce_kernel",)),
-]
-
-
-def _category(kernel: str) -> str:
-    name = kernel.lower()
-    for cat, keys in CATEGORIES:
-        if any(k in name for k in keys):
-            return cat
-    return "elementwise and other"
-
-
-def profile_steps(step, state, batch, rng, gates, card, n: int = 3) -> None:
-    """Device time per train step by layer and by kernel, under torch.profiler
-    (after the counted run; its launches are not part of the counts)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            state, _ = step(state, batch, rng, 0.0, gates, 3e-4, None)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    by_cat: dict[str, float] = {}
-    for e in kernels:
-        cat = _category(e.key)
-        by_cat[cat] = by_cat.get(cat, 0.0) + e.self_device_time_total / 1e3 / n
-    busy = sum(by_cat.values())
-    if busy == 0.0:
-        print("profile: torch.profiler recorded no device time", flush=True)
-        return
-    print(f"profile, {n} steps under torch.profiler [{card}]: device busy {busy:.3f} ms of "
-          f"{wall_ms:.3f} ms/step wall ({100 * busy / wall_ms:.1f}%)", flush=True)
-    for cat, ms in sorted(by_cat.items(), key=lambda kv: -kv[1]):
-        print(f"  {cat}: {ms:.3f} ms/step ({100 * ms / busy:.1f}%)", flush=True)
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
-        print(f"  kernel {e.key[:100]}: {e.self_device_time_total / 1e3 / n:.3f} ms/step, "
-              f"{e.count // n} launches/step", flush=True)
 
 
 def main() -> int:
@@ -341,7 +290,7 @@ def main() -> int:
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from ecologysemanticsegmentation_torch.ops import _build
+    from ecologysemanticsegmentation_torch.ops import _build, head_loss
 
     # Phase 1: device.
     card = _card()
@@ -349,7 +298,7 @@ def main() -> int:
           f"{torch.cuda.device_count()} visible", flush=True)
     # Phase 2: build.
     t0 = time.perf_counter()
-    _build.build_all()
+    head_loss.library()
     for name, info in _build.build_info.items():
         print(f"build {name}: {info['seconds']:.2f} s", flush=True)
         for entry, usage in _ptxas_usage(info["log"]):

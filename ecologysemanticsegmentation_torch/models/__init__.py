@@ -16,8 +16,7 @@ MODEL_NAMES = (
 
 
 def build_model(name: str = "deeplabv3plus", num_classes: int = 1,
-                encoder_name: str = "resnet34", upsample_head: bool = True,
-                device=None) -> torch.nn.Module:
+                upsample_head: bool = True, device=None) -> torch.nn.Module:
     """The named model on ``device`` (CUDA unless ``device="cpu"``), in
     ``channels_last`` memory.  ``upsample_head=False`` makes DeepLabV3+ emit
     1/4-resolution logits for the fused head loss; the parameters are the
@@ -26,8 +25,7 @@ def build_model(name: str = "deeplabv3plus", num_classes: int = 1,
         raise ValueError(f"unknown model {name!r}; choose from {MODEL_NAMES}")
     if name != "deeplabv3plus":
         raise NotImplementedError(f"model {name!r} is not ported yet")
-    model = DeepLabV3Plus(num_classes=num_classes, encoder_name=encoder_name,
-                          upsample_head=upsample_head)
+    model = DeepLabV3Plus(num_classes=num_classes, upsample_head=upsample_head)
     return model.to(device=resolve_device(device), memory_format=torch.channels_last)
 
 

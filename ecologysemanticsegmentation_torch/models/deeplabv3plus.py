@@ -57,14 +57,11 @@ class ASPP(nn.Module):
 
 
 class DeepLabV3Plus(nn.Module):
-    def __init__(self, num_classes: int = 1, encoder_name: str = "resnet34",
-                 decoder_features: int = 256, aspp_dropout: float = 0.5,
-                 upsample_head: bool = True):
+    def __init__(self, num_classes: int = 1, decoder_features: int = 256,
+                 aspp_dropout: float = 0.5, upsample_head: bool = True):
         super().__init__()
-        if encoder_name != "resnet34":
-            raise NotImplementedError(f"encoder {encoder_name!r} is not ported yet")
         self.upsample_head = upsample_head
-        self.encoder = ResNetEncoder(output_stride=16)
+        self.encoder = ResNetEncoder()
         self.aspp = ASPP(512, decoder_features, aspp_dropout)
         self.aspp_out = SeparableConvBNAct(decoder_features, decoder_features)
         self.low_project = ConvBNAct(64, 48, 1)

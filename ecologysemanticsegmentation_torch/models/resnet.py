@@ -4,8 +4,9 @@ ResNet-50 is not ported yet).
 
 Submodules are named as the flax tree names them (``conv1``, ``bn1``,
 ``layer{s}_block{b}``, ``downsample_conv``/``downsample_bn``).
-``output_stride=16`` dilates every 3x3 conv of the last stage by 2 and keeps
-its stride at 1 (smp ``make_dilated``), the DeepLabV3+ encoder.
+The encoder is built at output stride 16, the DeepLabV3+ encoder: every 3x3
+conv of the last stage is dilated by 2 and keeps its stride at 1 (smp
+``make_dilated``).
 """
 
 from __future__ import annotations
@@ -41,18 +42,17 @@ class BasicBlock(nn.Module):
 
 
 class ResNetEncoder(nn.Module):
-    """ResNet-34; returns the 5-level feature pyramid ``[/2, /4, /8, /16, /32|/16d]``."""
+    """ResNet-34 at output stride 16; returns the 5-level feature pyramid
+    ``[/2, /4, /8, /16, /16 dilated]``."""
 
-    def __init__(self, output_stride: int = 32):
+    def __init__(self):
         super().__init__()
-        if output_stride not in (16, 32):
-            raise ValueError(f"output_stride must be 16 or 32, got {output_stride}")
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = BatchNorm2d(64)
         self.stages: list[list[str]] = []
         cin = 64
         for stage, (num_blocks, width) in enumerate(zip((3, 4, 6, 3), (64, 128, 256, 512))):
-            dilate_stage = stage == 3 and output_stride == 16
+            dilate_stage = stage == 3
             names = []
             for b in range(num_blocks):
                 stride = 2 if (b == 0 and stage > 0 and not dilate_stage) else 1

@@ -1,8 +1,8 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
-Each source under ``csrc/`` becomes one shared library with a plain C
-interface, compiled for ``sm_90a`` at first use into ``ops/build/`` (listed
-in ``.gitignore``), named by a hash of its source so an edited kernel is
+``csrc/<name>.cu`` becomes one shared library with a plain C interface,
+compiled for ``sm_90a`` at first use into ``ops/build/`` (listed in
+``.gitignore``), named by a hash of its source so an edited kernel is
 rebuilt.  Nothing here runs at import time: the CPU tests import every
 module of the port on a machine without ``nvcc``.
 """
@@ -19,11 +19,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = {"head_loss": "head_loss.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# name -> {"seconds": build wall time, "log": nvcc's stderr (ptxas -v)}
+# name -> {"seconds": build wall time, "log": nvcc's output (ptxas -v)}
 build_info: dict[str, dict] = {}
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -39,47 +38,34 @@ def _nvcc() -> str:
                        "(set CUDA_HOME or put nvcc on PATH)")
 
 
-def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / SOURCES[name]).read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
-
-
-def build_all(names=None) -> None:
-    """Compile every missing library, one ``nvcc`` process per source, all
-    started together; raise with nvcc's output if any fails."""
-    names = list(SOURCES) if names is None else list(names)
-    todo = [n for n in names if not _lib_path(n).exists()]
-    if not todo:
-        return
+def _build(name: str) -> Path:
+    """The library of ``csrc/<name>.cu``, compiled unless already built;
+    raises with nvcc's output if the compile fails."""
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    out = BUILD_DIR / f"lib{name}_{digest}.so"
+    if out.exists():
+        return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    procs = {}
-    for n in todo:
-        out = _lib_path(n)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[n])]
-        procs[n] = (time.perf_counter(), tmp, out, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-    failed = []
-    for n, (t0, tmp, out, proc) in procs.items():
-        stdout, stderr = proc.communicate()
-        build_info[n] = {"seconds": time.perf_counter() - t0, "log": stdout + stderr}
-        if proc.returncode != 0:
-            failed.append(f"{n}: nvcc exit {proc.returncode}\n{stdout}{stderr}")
-            tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, out)  # atomic: concurrent builders never load half a file
-    if failed:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                          capture_output=True, text=True)
+    build_info[name] = {"seconds": time.perf_counter() - t0, "log": proc.stdout + proc.stderr}
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"kernel build of {src.name} failed: nvcc exit {proc.returncode}\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)  # atomic: a concurrent process never loads half a file
+    return out
 
 
 def load(name: str, signatures: dict) -> ctypes.CDLL:
-    """The library built from ``SOURCES[name]``, with ``argtypes`` and an
-    int ``restype`` (a cudaError_t) set from ``signatures``."""
+    """The library of ``csrc/<name>.cu``, with ``argtypes`` and an int
+    ``restype`` (a cudaError_t) set from ``signatures``."""
     lib = _loaded.get(name)
     if lib is None:
-        build_all([name])
-        lib = ctypes.CDLL(str(_lib_path(name)))
+        lib = ctypes.CDLL(str(_build(name)))
         for fn, argtypes in signatures.items():
             f = getattr(lib, fn)
             f.argtypes = argtypes

@@ -40,6 +40,11 @@ _SIGNATURES = {
 }
 
 
+def library() -> ctypes.CDLL:
+    """The kernels' shared library, built from ``csrc/head_loss.cu`` at first use."""
+    return _build.load("head_loss", _SIGNATURES)
+
+
 def head_sums_reference(logits_lr: torch.Tensor, labels: torch.Tensor,
                         align_corners: bool = True) -> torch.Tensor:
     """Plain version: f32 matrix upsample + sigmoid + the (8, C) sums."""
@@ -150,7 +155,7 @@ def head_sums_cuda(logits_lr: torch.Tensor, labels: torch.Tensor,
     x_idx, x_wt, _ = _tables(W, w, bool(align_corners), dev)
     nblk = -(-H * W // PIX_PER_BLOCK)
     partials = torch.empty((B * nblk, NUM_SUMS, C), dtype=torch.float32, device=dev)
-    lib = _build.load("head_loss", _SIGNATURES)
+    lib = library()
     rc = lib.head_loss_fwd(_ptr(logits_lr), _ptr(labels), _ptr(y_idx), _ptr(y_wt),
                            _ptr(x_idx), _ptr(x_wt), _ptr(partials),
                            B, h, w, H, W, C, PIX_PER_BLOCK, _stream(dev))
@@ -171,7 +176,7 @@ def head_sums_bwd_cuda(logits_lr: torch.Tensor, labels: torch.Tensor, cot: torch
     x_idx, x_wt, x_rng = _tables(W, w, bool(align_corners), dev)
     z = torch.empty((B, H, w, C), dtype=torch.float32, device=dev)
     dx = torch.empty((B, h, w, C), dtype=torch.float32, device=dev)
-    lib = _build.load("head_loss", _SIGNATURES)
+    lib = library()
     rc = lib.head_loss_bwd(_ptr(logits_lr), _ptr(labels), _ptr(k), _ptr(y_idx), _ptr(y_wt),
                            _ptr(y_rng), _ptr(x_idx), _ptr(x_wt), _ptr(x_rng), _ptr(z), _ptr(dx),
                            B, h, w, H, W, C, _stream(dev))

@@ -22,11 +22,6 @@ import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 
 
-def pytest_configure(config):
-    config.addinivalue_line(
-        "markers", "gpu: needs a CUDA device (skips without one); run `pytest -m gpu` on the H100")
-
-
 @pytest.fixture
 def rng():
     return np.random.RandomState(0)
