@@ -1,2 +1,3 @@
-"""Ops of the port: the f32 matrix resize and the fused head loss, whose
-CUDA kernels live in ``csrc/`` and are built by ``_build`` at first use."""
+"""Ops of the port: the f32 matrix resize, the fused head loss and the
+tiled-CLAHE apply, whose CUDA kernels live in ``csrc/`` and are built by
+``_build`` at first use."""

@@ -3,7 +3,8 @@
 ``csrc/<name>.cu`` becomes one shared library with a plain C interface,
 compiled for ``sm_90a`` at first use into ``ops/build/`` (listed in
 ``.gitignore``), named by a hash of its source so an edited kernel is
-rebuilt.  Nothing here runs at import time: the CPU tests import every
+rebuilt; :func:`build` starts one ``nvcc`` per source, all together.
+Nothing here runs at import time: the CPU tests import every
 module of the port on a machine without ``nvcc``.
 """
 
@@ -38,26 +39,37 @@ def _nvcc() -> str:
                        "(set CUDA_HOME or put nvcc on PATH)")
 
 
-def _build(name: str) -> Path:
-    """The library of ``csrc/<name>.cu``, compiled unless already built;
-    raises with nvcc's output if the compile fails."""
+def _target(name: str) -> tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{name}_{digest}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                          capture_output=True, text=True)
-    build_info[name] = {"seconds": time.perf_counter() - t0, "log": proc.stdout + proc.stderr}
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"kernel build of {src.name} failed: nvcc exit {proc.returncode}\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent process never loads half a file
-    return out
+    return src, BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def build(names) -> None:
+    """Compile ``csrc/<name>.cu`` for every name not built yet, one ``nvcc``
+    process per source, all started together; raises with nvcc's output if
+    any compile fails."""
+    jobs = []
+    for name in names:
+        src, out = _target(name)
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, src, out, tmp, proc, time.perf_counter()))
+    failed = []
+    for name, src, out, tmp, proc, t0 in jobs:
+        log, _ = proc.communicate()
+        build_info[name] = {"seconds": time.perf_counter() - t0, "log": log}
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"kernel build of {src.name} failed: nvcc exit {proc.returncode}\n{log}")
+        else:
+            os.replace(tmp, out)  # atomic: a concurrent process never loads half a file
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def load(name: str, signatures: dict) -> ctypes.CDLL:
@@ -65,7 +77,8 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
     ``restype`` (a cudaError_t) set from ``signatures``."""
     lib = _loaded.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(_build(name)))
+        build([name])
+        lib = ctypes.CDLL(str(_target(name)[1]))
         for fn, argtypes in signatures.items():
             f = getattr(lib, fn)
             f.argtypes = argtypes

@@ -1,7 +1,7 @@
 """Train step, train state and inference forward (PyTorch port of
 ``ecologysemanticsegmentation_tpu/train/trainer.py``), for the flagship
-path: DeepLabV3+ with ``upsample_head=False`` and the fused low-resolution
-head loss.
+path: device augmentation, DeepLabV3+ with ``upsample_head=False`` and the
+fused low-resolution head loss.
 
 On a CUDA device the model runs under bf16 autocast with float32 parameters
 (the JAX package's bf16-compute/f32-params); on the CPU it runs in float32,
@@ -18,6 +18,7 @@ from typing import Callable
 import torch
 from torch import nn
 
+from ..data.augment import augment_batch
 from ..losses import LOSS_NAMES, return_union_sets_descending_order, seven_losses_lowres
 from ..models.common import BatchNorm2d
 
@@ -89,15 +90,18 @@ def make_train_step(model: nn.Module, tx, augment: bool = False,
 
     ``step(state, batch, rng, bg_weight, gates3, lr, jitters) -> (state, metrics)``
     with ``batch = {"image": (B, H, W, 3), "label": (B, H, W, C)}`` NHWC,
-    ``rng`` a ``torch.Generator`` on the model's device (ASPP dropout),
-    ``gates3 = [focal_dice_w, bce_w, generalized_dice_w]``.  ``bg_weight``
-    and ``jitters`` are accepted for the JAX signature and unused on this
-    path (multi-organ drops the background weight; no composite loss).
+    ``gates3 = [focal_dice_w, bce_w, generalized_dice_w]``.  ``rng`` is a
+    ``torch.Generator`` on the model's device (ASPP dropout); with
+    ``augment=True`` it is the pair ``(host_gen, device_gen)``: a CPU
+    generator for the augmentation's batch-uniform draws and the device
+    generator, which draws the augmentation's per-sample values and then
+    the dropout masks.  Augmentation (:func:`..data.augment.augment_batch`,
+    CLAHE form from ``AUGMENT_TILED_CLAHE``) runs on the device before label
+    prep, as in the JAX step.  ``bg_weight`` and ``jitters`` are accepted
+    for the JAX signature and unused on this path (multi-organ drops the
+    background weight; no composite loss).
     ``state`` is updated in place and returned.  ``tx`` is consumed by
     :func:`create_train_state`, which puts the optimizer in the state."""
-    if augment:
-        raise NotImplementedError(
-            "device augmentation is not ported yet (ROADMAP queue 1, item 5)")
     if not lowres_head:
         raise NotImplementedError(
             "the full-resolution loss path needs the loss_sums kernel, not ported yet "
@@ -110,9 +114,16 @@ def make_train_step(model: nn.Module, tx, augment: bool = False,
             raise ValueError("state was created for another model")
         param = next(model.parameters())
         dev = param.device
-        labels = _prepare_labels(torch.as_tensor(batch["label"], device=dev))
+        images = torch.as_tensor(batch["image"], device=dev)
+        labels = torch.as_tensor(batch["label"], device=dev)
+        if augment:
+            if not (isinstance(rng, tuple) and len(rng) == 2):
+                raise TypeError("with augment=True, rng is the pair (host_gen, device_gen)")
+            images, labels = augment_batch(rng, images, labels)
+            rng = rng[1]
+        labels = _prepare_labels(labels)
         # Images are rounded to bf16 before the model, as in the JAX step.
-        images = torch.as_tensor(batch["image"], device=dev).to(torch.bfloat16).to(param.dtype)
+        images = images.to(torch.bfloat16).to(param.dtype)
         gates = torch.as_tensor(gates3, dtype=torch.float32, device=dev)
 
         model.train()

@@ -4,8 +4,9 @@
 * Entry points run on CUDA by default and raise without a card unless the
   caller passes ``device="cpu"``.
 * The head-loss wrapper rejects what its kernel does not take.
-* ``-m gpu`` (on the H100): the CUDA kernels build and agree with their plain
-  versions.  Here, without a card, that test skips.
+* ``-m gpu`` (on the H100): the CUDA kernels (head loss, tiled-CLAHE apply)
+  build and agree with their plain versions.  Here, without a card, those
+  tests skip.
 """
 
 import os
@@ -18,6 +19,7 @@ import pytest
 import torch
 
 import ecologysemanticsegmentation_torch as est
+from ecologysemanticsegmentation_torch.ops import clahe_tiled as ct
 from ecologysemanticsegmentation_torch.ops import head_loss as hl
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -64,9 +66,9 @@ def test_build_model_names():
 
 
 def test_train_step_scope():
+    """Augmentation is ported; the full-resolution loss path is not."""
     model = est.build_model(num_classes=3, upsample_head=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        est.make_train_step(model, est.make_optimizer(), augment=True)
+    assert callable(est.make_train_step(model, est.make_optimizer(), augment=True))
     with pytest.raises(NotImplementedError, match="loss_sums"):
         est.make_train_step(model, est.make_optimizer(), lowres_head=False)
 
@@ -124,3 +126,25 @@ def test_cuda_kernels_match_plain(cuda, b, h, scale, c, align_corners):
     torch.testing.assert_close(sums, ref, rtol=1e-4, atol=1e-3)
     assert torch.equal(sums[7], (labels >= 0).sum((0, 1, 2)).float())
     torch.testing.assert_close(x.grad, dref, rtol=0, atol=1e-4 * dref.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,w,bins,tiles", [
+    (2, 64, 64, 32, 8), (2, 64, 64, 64, 8), (1, 48, 80, 64, 8), (3, 256, 256, 64, 8),
+    (1, 32, 32, 32, 4), (1, 512, 512, 64, 8),
+])
+def test_cuda_clahe_kernel_matches_plain(cuda, b, h, w, bins, tiles):
+    """The kernel sums over k before the two y taps, the plain version after
+    them: the same f32 terms in another order, within 1e-5 (values <= 1)."""
+    rs = np.random.RandomState(0)
+    luma = torch.tensor(rs.rand(b, h, w), dtype=torch.float32, device=cuda)
+    hist = rs.rand(b, tiles, tiles, bins) + 0.1
+    cdf = np.cumsum(hist, axis=-1)
+    cdf /= cdf[..., -1:]
+    deltas = torch.tensor(np.diff(cdf, axis=-1, prepend=0.0), dtype=torch.float32, device=cuda)
+    before = ct.launches["clahe_tiled"]
+    got = ct.tiled_clahe_new_luma(luma, deltas, tiles)
+    torch.cuda.synchronize()
+    assert ct.launches["clahe_tiled"] == before + 1
+    want = ct.tiled_clahe_new_luma(luma.cpu(), deltas.cpu(), tiles)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
