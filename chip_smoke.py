@@ -7,22 +7,33 @@ Phases, each fatal on failure (an exception ends the run with a non-zero
 exit code before the result line is printed):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build: the CUDA kernels from ``ecologysemanticsegmentation_torch/ops/csrc``
-   with nvcc, one process per source, all started together;
+2. build: the three CUDA kernel sources from
+   ``ecologysemanticsegmentation_torch/ops/csrc`` with nvcc, one process per
+   source, all started together;
 3. kernels: every kernel against its plain PyTorch version on the card at the
-   main path's shapes and at the other shapes it serves, with its time, the
+   main paths' shapes and at the other shapes it serves, with its time, the
    plain version's time and its bound (the head loss also at 512, 768 and
-   1024 px); device augmentation on the card against the same draws on the
-   CPU, in both CLAHE forms; a small batch of the unaugmented step on the
-   card against the step on the CPU (plain versions, f32);
-4. forward: ``make_forward`` at batch 128, 256 px, full width;
-5. train step: DeepLabV3+ (resnet34, full width), batch 128 at 256 px, C = 3,
-   ``lowres_head=True``, bf16 autocast, 13 steps each of: ``augment=False``;
-   ``augment=True`` with the global CLAHE; ``augment=True`` with the tiled
-   CLAHE (``AUGMENT_TILED_CLAHE=1``).  For each, the launch counters are
-   zeroed just before and read just after: every kernel of the path must have
-   launched once per step (the tiled-CLAHE kernel in the tiled run only), and
-   the loss must be finite and fall.
+   1024 px; the loss sums at the sequential step's C = 3 and C = 1 calls);
+   device augmentation on the card against the same draws on the CPU, in
+   both CLAHE forms; a small batch of the unaugmented step on the card
+   against the step on the CPU (plain versions), for the flagship
+   low-resolution head loss (f32 model, bf16 autocast on the card) and for
+   the full-resolution losses (float64 models; ``composite_mode``
+   "sequential" and "general" at C = 3, "none" at C = 1);
+4. forward and eval: ``make_forward`` and ``make_eval_step`` at batch 128,
+   256 px, C = 3, full width;
+5. train step: DeepLabV3+ (resnet34, full width), batch 128 at 256 px,
+   bf16 autocast, 13 steps each of: the flagship (C = 3,
+   ``lowres_head=True``) with ``augment=False``, with ``augment=True`` and
+   the global CLAHE, and with ``augment=True`` and the tiled CLAHE
+   (``AUGMENT_TILED_CLAHE=1``); the sequential trainer's step (C = 3,
+   ``composite_mode="sequential"``, full resolution) and the single-organ
+   step (C = 1, full resolution), each augmented with the global CLAHE.
+   For each run the launch counters are zeroed just before and read just
+   after: every kernel of its path must have launched as often as the path
+   calls it (the loss sums twice a step in the sequential step, once in the
+   single-organ step; no other kernel's count may move), and the loss must
+   be finite and fall.
 
 The device time of the step by layer is not measured here:
 ``python3 -m ecologysemanticsegmentation_torch.train.profile_step`` does that.
@@ -58,6 +69,16 @@ F32_FLOP_PER_S = 67e12
 FWD_OPS_PER_ELEM = 9 + 3 + 30
 BWD_OPS_PER_ELEM = 9 + 3 + 26 + 2 + 8
 
+# Operations per element of the full-resolution loss sums, counted as
+# instructions.  Forward: the mask, g*w and 1-p (3), the four plain rows
+# (8), the two focal rows (2 x (sqrt, 2 mul, eps add, log, mul, add)), the
+# softplus row (max, abs, neg, exp, log1p, add, mul, add) and the count (1).
+# Backward, dp: 1-p, 2 sqrt, the sign (4), rows 1-3 (3), row 4 (8), row 5
+# (9), row 6 (7), the sum (5) and the mask (1); dg: mul, add, mul.
+LS_FWD_OPS_PER_ELEM = 3 + 8 + 14 + 8 + 1
+LS_DP_OPS_PER_ELEM = 4 + 3 + 8 + 9 + 7 + 5 + 1
+LS_DG_OPS_PER_ELEM = 3
+
 # (B, h, w, H, W, C, align_corners): the main path's shape first.
 SHAPES = [
     (128, 64, 64, 256, 256, 3, True),
@@ -83,6 +104,16 @@ CLAHE_SHAPES = [
     (4, 192, 320, 8, 64),
 ]
 CLAHE_ATOL = 1e-5   # f32 sums of <= K + 2 terms of magnitude <= 1, in another order
+# Loss sums (B, H, W, C): the sequential step's C = 3 call (the main call of
+# every full-resolution path) and its C = 1 cross term (also the
+# single-organ step's one call), then C = 11, a ragged tail, and 1024 px.
+LOSS_SUMS_SHAPES = [
+    (128, 256, 256, 3),
+    (128, 256, 256, 1),
+    (32, 256, 256, 11),
+    (3, 97, 101, 3),
+    (8, 1024, 1024, 3),
+]
 # Augmentation on the card against the CPU (bf16): every value within 2 bf16
 # ulps, except on at most 1% of the pixels (a rounding difference moved the
 # pixel across a CLAHE bin or a hue sector), which stay within 1/16.
@@ -105,7 +136,8 @@ def _ptxas_usage(log: str) -> list[tuple[str, str]]:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            name = re.search(r"\d+(fwd_kernel|bwd_rows_kernel|bwd_gather_kernel|clahe_apply_kernel)"
+            name = re.search(r"\d+(loss_sums_fwd_kernel|loss_sums_bwd_kernel|fwd_kernel|"
+                             r"bwd_rows_kernel|bwd_gather_kernel|clahe_apply_kernel)"
                              r"(?:ILi(\d+)E)?", m.group(1))
             entry = f"{name.group(1)}<{name.group(2)}>" if name and name.group(2) else (
                 name.group(1) if name else m.group(1))
@@ -256,6 +288,76 @@ def check_clahe(card: str) -> dict:
     return report
 
 
+def check_loss_sums(card: str) -> dict:
+    """Phase 3: the loss-sums kernels against their plain versions at every
+    shape, both gradients written; time, plain time and bound at the two
+    shapes of the sequential step, with the backward writing what the path
+    asks for there (dp at C = 3, dg at C = 1: the single-organ step's probs
+    sit in the label slot)."""
+    import torch
+
+    from ecologysemanticsegmentation_torch.ops import loss_sums as ls
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    report = {}
+    for shape in LOSS_SUMS_SHAPES:
+        B, H, W, C = shape
+        p = torch.rand(shape, generator=gen, device="cuda")
+        g = (torch.rand(shape, generator=gen, device="cuda") > 0.5).float()
+        g[torch.rand(shape, generator=gen, device="cuda") < 0.05] = -1.0
+        cot = torch.randn((8, C), generator=gen, device="cuda")
+        p2, g2 = p.reshape(-1, C), g.reshape(-1, C)
+        sums = ls.loss_sums_cuda(p2, g2)
+        ref = ls._sums_reference(p2.T, g2.T)
+        dp, dg = ls.loss_sums_bwd_cuda(p2, g2, cot)
+        dp_ref, dg_ref = ls.loss_sums_bwd_reference(p2.T, g2.T, cot)
+        dp_ref, dg_ref = dp_ref.T, dg_ref.T
+        torch.cuda.synchronize()
+        fwd_err = (sums - ref).abs().max().item()
+        dp_err = (dp - dp_ref).abs().max().item()
+        dg_err = (dg - dg_ref).abs().max().item()
+        fwd_ok = bool(((sums - ref).abs() <= SUM_RTOL * ref.abs() + 1e-3).all())
+        bwd_ok = (dp_err <= GRAD_RTOL * dp_ref.abs().max().item()
+                  and dg_err <= GRAD_RTOL * dg_ref.abs().max().item())
+        exact_count = bool((sums[7] == (g2 >= 0).sum(0).float()).all())
+        print(f"kernel check loss_sums {shape}: fwd max_abs_err {fwd_err:.6g} (max |sum| "
+              f"{ref.abs().max().item():.6g}), dp max_abs_err {dp_err:.6g} (max |dp| "
+              f"{dp_ref.abs().max().item():.6g}), dg max_abs_err {dg_err:.6g} (max |dg| "
+              f"{dg_ref.abs().max().item():.6g}), count row exact {exact_count}", flush=True)
+        if not (fwd_ok and bwd_ok and exact_count and torch.isfinite(dp).all()
+                and torch.isfinite(dg).all()):
+            raise AssertionError(f"loss-sums kernels disagree with their plain versions at {shape}")
+        if shape not in LOSS_SUMS_SHAPES[:2]:
+            continue
+        need_dp = C > 1
+        elems = B * H * W * C
+        fwd_ms = _time_ms(lambda: ls.loss_sums_cuda(p2, g2))
+        fwd_plain = _time_ms(lambda: ls._sums_reference(p2.T, g2.T), iters=5)
+        bwd_ms = _time_ms(lambda: ls.loss_sums_bwd_cuda(p2, g2, cot, need_dp, not need_dp))
+        bwd_plain = _time_ms(lambda: ls.loss_sums_bwd_reference(p2.T, g2.T, cot), iters=5)
+        # bytes: p and g read once, the (8, C) sums or cotangent, one gradient written
+        fb, fby = _bound(8 * elems + 8 * C * 4, elems * LS_FWD_OPS_PER_ELEM)
+        bb, bby = _bound(12 * elems + 8 * C * 4,
+                         elems * (LS_DP_OPS_PER_ELEM if need_dp else LS_DG_OPS_PER_ELEM))
+        grad = "dp" if need_dp else "dg"
+        print(f"kernel times loss_sums at {shape} [{card}]: fwd {fwd_ms:.4f} ms (plain "
+              f"{fwd_plain:.4f}, bound {fb:.4f} by {fby}), bwd writing {grad} {bwd_ms:.4f} ms "
+              f"(plain {bwd_plain:.4f}, both gradients; bound {bb:.4f} by {bby})", flush=True)
+        if shape != LOSS_SUMS_SHAPES[0]:
+            continue
+        src = "ecologysemanticsegmentation_torch/ops/csrc/loss_sums.cu"
+        tpu = "ecologysemanticsegmentation_tpu/ops/pallas/loss_sums.py"
+        report["loss_sums_fwd"] = dict(
+            name="loss_sums_fwd", route="cuda", source=src, replaces=f"{tpu}:73",
+            max_abs_err=fwd_err, ms=fwd_ms, plain_ms=fwd_plain, bound_ms=fb, bound_by=fby,
+            library_ms=None)
+        report["loss_sums_bwd"] = dict(
+            name="loss_sums_bwd", route="cuda", source=src, replaces=f"{tpu}:102",
+            max_abs_err=dp_err, ms=bwd_ms, plain_ms=bwd_plain, bound_ms=bb, bound_by=bby,
+            library_ms=None)
+    return report
+
+
 def _bf16_ulp(v):
     import torch
 
@@ -314,59 +416,94 @@ def check_augment() -> None:
           f"max err {worst:.4g}, branches {sorted(seen)})", flush=True)
 
 
-def _batch(n: int, img: int, organs: int, device: str, seed: int) -> dict:
+def _batch(n: int, img: int, organs: int, device: str, seed: int, ignore: float = 0.05) -> dict:
     import torch
 
     gen = torch.Generator().manual_seed(seed)
     image = torch.rand((n, img, img, 3), generator=gen)
     label = (torch.rand((n, img, img, organs), generator=gen) > 0.5).float()
-    label[torch.rand(label.shape, generator=gen) < 0.05] = -1.0
+    label[torch.rand(label.shape, generator=gen) < ignore] = -1.0
     return {"image": image.to(device), "label": label.to(device)}
 
 
+# The small step's cases: (what, organs, composite_mode, lowres_head, label
+# ignore rate, model dtype, rtol).  The flagship runs as users run it, an
+# f32 model under bf16 autocast on the card, against the f32 step on the
+# CPU (STEP_RTOL).  The full-resolution cases run a float64 model on both
+# sides (autocast leaves float64 alone), so the loss sums, f32 in both, see
+# the same probabilities: the composites' terms such as
+# log(|x1 - x2| + eps) at nearly equal organ probabilities turn bf16
+# rounding into several percent of the focal metric, which would hide what
+# this compares, the kernels and the loss plumbing on the card against the
+# plain versions (FULLRES_STEP_RTOL).  The general composite and the
+# single-organ step put labels in the prediction slot of the sums, where a
+# -1 label makes the focal metric NaN in the reference as well, so they run
+# on clean labels.
+FULLRES_STEP_RTOL = 1e-4  # f32 sums of 8192 terms in another order, through ratios
+SMALL_STEPS = [
+    ("flagship, low-resolution head loss", 3, "none", True, 0.05, "float32", STEP_RTOL),
+    ("sequential, full resolution", 3, "sequential", False, 0.05, "float64",
+     FULLRES_STEP_RTOL),
+    ("general composite, full resolution", 3, "general", False, 0.0, "float64",
+     FULLRES_STEP_RTOL),
+    ("single organ, full resolution", 1, "none", False, 0.0, "float64", FULLRES_STEP_RTOL),
+]
+
+
 def check_small_step() -> None:
-    """The same step, same weights and batch (batch 2, 64 px, dropout off),
-    on the card (kernels, bf16 autocast) and on the CPU (plain, f32)."""
+    """The same unaugmented step, same weights and batch (batch 2, 64 px,
+    dropout off), on the card (kernels) and on the CPU (plain versions), for
+    each of ``SMALL_STEPS``."""
     import torch
 
     import ecologysemanticsegmentation_torch as est
     from ecologysemanticsegmentation_torch.models import DeepLabV3Plus
 
-    metrics = {}
-    for device in ("cuda", "cpu"):
-        model = DeepLabV3Plus(num_classes=3, aspp_dropout=0.0, upsample_head=False).to(
-            device=device, memory_format=torch.channels_last)
-        tx = est.make_optimizer(3e-4)
-        state = est.create_train_state(model, torch.Generator().manual_seed(0), tx)
-        step = est.make_train_step(model, tx)
-        rng = torch.Generator(device=device).manual_seed(1)
-        _, met = step(state, _batch(2, 64, 3, device, seed=2), rng, 0.0, [1.0, 1.0, 1.0],
-                      3e-4, None)
-        metrics[device] = {k: float(v) for k, v in met.items()}
-    for k, want in metrics["cpu"].items():
-        got = metrics["cuda"][k]
-        if not (math.isfinite(got) and abs(got - want) <= STEP_RTOL * abs(want) + 1e-4):
-            raise AssertionError(f"small step on the card: {k} {got} vs CPU {want}")
-    print(f"small step agrees with the CPU step (rtol {STEP_RTOL}): loss "
-          f"{metrics['cuda']['loss']:.6f} vs {metrics['cpu']['loss']:.6f}", flush=True)
+    for what, organs, mode, lowres, ignore, dtype, rtol in SMALL_STEPS:
+        metrics = {}
+        for device in ("cuda", "cpu"):
+            model = DeepLabV3Plus(num_classes=organs, aspp_dropout=0.0,
+                                  upsample_head=not lowres).to(
+                device=device, dtype=getattr(torch, dtype), memory_format=torch.channels_last)
+            tx = est.make_optimizer(3e-4)
+            state = est.create_train_state(model, torch.Generator().manual_seed(0), tx)
+            step = est.make_train_step(model, tx, composite_mode=mode, augment=False,
+                                       lowres_head=lowres)
+            rng = torch.Generator(device=device).manual_seed(1)
+            _, met = step(state, _batch(2, 64, organs, device, seed=2, ignore=ignore), rng,
+                          0.3, [1.0, 1.0, 1.0], 3e-4, None)
+            metrics[device] = {k: float(v) for k, v in met.items()}
+        for k, want in metrics["cpu"].items():
+            got = metrics["cuda"][k]
+            if not (math.isfinite(got) and abs(got - want) <= rtol * abs(want) + 1e-4):
+                raise AssertionError(f"small step on the card ({what}): {k} {got} vs CPU {want}")
+        print(f"small step ({what}, {dtype} model) agrees with the CPU step (rtol {rtol}): "
+              f"loss {metrics['cuda']['loss']:.6f} vs {metrics['cpu']['loss']:.6f}", flush=True)
+
+
+def _counter_dicts() -> tuple:
+    from ecologysemanticsegmentation_torch.ops import clahe_tiled, head_loss, loss_sums
+
+    return head_loss.launches, clahe_tiled.launches, loss_sums.launches
 
 
 def _counters() -> dict:
-    from ecologysemanticsegmentation_torch.ops import clahe_tiled, head_loss
-
-    return {**head_loss.launches, **clahe_tiled.launches}
+    return {k: v for launches in _counter_dicts() for k, v in launches.items()}
 
 
 def _zero_counters() -> None:
-    from ecologysemanticsegmentation_torch.ops import clahe_tiled, head_loss
-
-    for launches in (head_loss.launches, clahe_tiled.launches):
+    for launches in _counter_dicts():
         for k in launches:
             launches[k] = 0
 
 
-def _train_run(card: str, augment: bool, tiled: bool) -> dict:
-    """13 flagship steps (3 warm-up, 10 timed) from fresh weights; the
+# Loss-sums calls per step of each full-resolution composite mode run here.
+LOSS_SUMS_CALLS = {"none": 1, "sequential": 2}
+
+
+def _train_run(card: str, augment: bool, tiled: bool, organs: int = 3,
+               composite_mode: str = "none", lowres_head: bool = True) -> dict:
+    """13 steps (3 warm-up, 10 timed) from fresh weights at full width; the
     counters are zeroed just before and read just after.  Returns the
     counts."""
     import torch
@@ -374,17 +511,21 @@ def _train_run(card: str, augment: bool, tiled: bool) -> dict:
     import ecologysemanticsegmentation_torch as est
     from ecologysemanticsegmentation_torch.data import augment as aug
 
-    batch_size, img, organs = 128, 256, 3
-    what = ("augment=False" if not augment else
-            f"augment=True, {'tiled' if tiled else 'global'} CLAHE")
+    batch_size, img = 128, 256
+    what = ("flagship" if lowres_head else
+            "sequential" if composite_mode == "sequential" else f"full resolution, C = {organs}")
+    what += (", augment=False" if not augment else
+             f", augment=True, {'tiled' if tiled else 'global'} CLAHE")
     # The step reads the CLAHE form from the module flag, which
     # AUGMENT_TILED_CLAHE sets at import; both forms run in this process.
     aug.TILED_CLAHE = tiled
-    model = est.build_model("deeplabv3plus", num_classes=organs, upsample_head=False)
+    model = est.build_model("deeplabv3plus", num_classes=organs, upsample_head=not lowres_head)
     tx = est.make_optimizer(3e-4)
     state = est.create_train_state(model, torch.Generator().manual_seed(0), tx)
-    step = est.make_train_step(model, tx, augment=augment, lowres_head=True)
-    batch = _batch(batch_size, img, organs, "cuda", seed=4)
+    step = est.make_train_step(model, tx, composite_mode=composite_mode, augment=augment,
+                               lowres_head=lowres_head)
+    # single organ: clean labels (see SMALL_STEPS)
+    batch = _batch(batch_size, img, organs, "cuda", seed=4, ignore=0.05 if organs > 1 else 0.0)
     dev_gen = torch.Generator(device="cuda").manual_seed(1)
     rng = (torch.Generator().manual_seed(2), dev_gen) if augment else dev_gen
     gates = [1.0, 1.0, 1.0]
@@ -415,17 +556,25 @@ def _train_run(card: str, augment: bool, tiled: bool) -> dict:
     if not losses[-1] < losses[0]:
         raise AssertionError(f"train step ({what}): loss did not fall "
                              f"({losses[0]} -> {losses[-1]})")
-    want = {"head_loss_fwd": steps, "head_loss_bwd": steps,
-            "clahe_tiled": steps if augment and tiled else 0}
+    want = {k: 0 for k in counts}
+    if lowres_head:
+        want["head_loss_fwd"] = want["head_loss_bwd"] = steps
+    else:
+        calls = LOSS_SUMS_CALLS[composite_mode]
+        want["loss_sums_fwd"] = want["loss_sums_bwd"] = calls * steps
+    if augment and tiled:
+        want["clahe_tiled"] = steps
     if counts != want:
-        raise AssertionError(f"train step ({what}) did not run the kernels once per step: "
-                             f"{counts}, expected {want}")
+        raise AssertionError(f"train step ({what}) did not run its kernels as often as its "
+                             f"path calls them: {counts}, expected {want}")
     return counts
 
 
 def run_main_path(card: str) -> dict:
-    """Phases 4 and 5 on the full-width flagship model; returns the launch
-    counts of the tiled augmented run, which goes through every kernel."""
+    """Phases 4 and 5 at full width; returns each kernel's launch count from
+    the run that exercises it: the head loss from the unaugmented flagship
+    run, the tiled CLAHE from the tiled run, the loss sums from the
+    sequential run."""
     import torch
 
     import ecologysemanticsegmentation_torch as est
@@ -447,12 +596,37 @@ def run_main_path(card: str) -> dict:
     fwd_ms = _time_ms(lambda: forward(fstate, images), iters=5, warmup=1)
     print(f"forward: {tuple(probs.shape)} finite, {fwd_ms:.3f} ms/batch of {batch_size} "
           f"[{card}]", flush=True)
-    del fmodel, fstate, probs
 
-    # Phase 5: the train step, unaugmented and augmented in both CLAHE forms.
-    _train_run(card, augment=False, tiled=False)
+    # Phase 4: the eval step (main head, union transform off, val BCE).
+    eval_step = est.make_eval_step(fmodel)
+    ebatch = _batch(batch_size, img, organs, "cuda", seed=3)
+    out = eval_step(fstate, ebatch)
+    torch.cuda.synchronize()
+    eprobs = out["probs"]
+    if not (tuple(eprobs.shape) == (batch_size, img, img, organs)
+            and torch.isfinite(eprobs).all() and ((eprobs >= 0) & (eprobs <= 1)).all()):
+        raise AssertionError("eval: probabilities of the wrong shape, non-finite or outside [0, 1]")
+    if not (tuple(out["dice"].shape) == (organs,) and torch.isfinite(out["dice"]).all()
+            and torch.isfinite(out["bce"]) and torch.equal(out["valid"],
+                                                          torch.ones_like(out["valid"]))):
+        raise AssertionError(f"eval: dice {out['dice']}, bce {out['bce']}, valid {out['valid']}")
+    eval_ms = _time_ms(lambda: eval_step(fstate, ebatch), iters=5, warmup=1)
+    print(f"eval: dice {[round(float(d), 6) for d in out['dice']]}, bce "
+          f"{float(out['bce']):.6f}, valid {out['valid'].tolist()}, {eval_ms:.3f} ms/batch of "
+          f"{batch_size} [{card}]", flush=True)
+    del fmodel, fstate, images, probs, ebatch, out, eprobs
+
+    # Phase 5: the flagship step, unaugmented and augmented in both CLAHE
+    # forms; the sequential and the single-organ full-resolution steps.
+    counts = _train_run(card, augment=False, tiled=False)
     _train_run(card, augment=True, tiled=False)
-    return _train_run(card, augment=True, tiled=True)
+    tiled = _train_run(card, augment=True, tiled=True)
+    seq = _train_run(card, augment=True, tiled=False, composite_mode="sequential",
+                     lowres_head=False)
+    _train_run(card, augment=True, tiled=False, organs=1, lowres_head=False)
+    counts["clahe_tiled"] = tiled["clahe_tiled"]
+    counts["loss_sums_fwd"], counts["loss_sums_bwd"] = seq["loss_sums_fwd"], seq["loss_sums_bwd"]
+    return counts
 
 
 def main() -> int:
@@ -468,7 +642,7 @@ def main() -> int:
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from ecologysemanticsegmentation_torch.ops import _build, clahe_tiled, head_loss
+    from ecologysemanticsegmentation_torch.ops import _build, clahe_tiled, head_loss, loss_sums
 
     # Phase 1: device.
     card = _card()
@@ -476,9 +650,10 @@ def main() -> int:
           f"{torch.cuda.device_count()} visible", flush=True)
     # Phase 2: build.
     t0 = time.perf_counter()
-    _build.build(["head_loss", "clahe_tiled"])
+    _build.build(["head_loss", "clahe_tiled", "loss_sums"])
     head_loss.library()
     clahe_tiled.library()
+    loss_sums.library()
     for name, info in _build.build_info.items():
         print(f"build {name}: {info['seconds']:.2f} s", flush=True)
         for entry, usage in _ptxas_usage(info["log"]):
@@ -487,6 +662,7 @@ def main() -> int:
     # Phase 3: kernels against their plain versions.
     report = check_kernels(card)
     report.update(check_clahe(card))
+    report.update(check_loss_sums(card))
     check_augment()
     check_small_step()
     # Phases 4 and 5: the main path, counted.

@@ -26,23 +26,42 @@ from .losses import (  # noqa: E402
     EPS,
     LOSS_NAMES,
     binary_cross_entropy,
+    binary_cross_entropy_list,
+    classification_dice_list,
+    composite_jitters,
+    cross_entropy_list,
     dice_score,
+    focal_list,
+    intersection_loss,
+    prob_cross_entropy,
+    relative_ratios,
     return_union_sets_descending_order,
+    sequential_cross_organ_losses,
+    sequential_densenet_composite,
+    sequential_densenet_composite_deadbranch,
     seven_from_sums,
+    seven_losses,
+    seven_losses_composite_general,
     seven_losses_lowres,
+    union_loss,
 )
 from .models import build_model  # noqa: E402
 from .train import (  # noqa: E402
     TrainState,
     create_train_state,
+    make_eval_step,
     make_forward,
     make_optimizer,
     make_train_step,
 )
 
 __all__ = [
-    "EPS", "LOSS_NAMES", "TrainState", "binary_cross_entropy", "build_model",
-    "create_train_state", "dice_score", "make_forward", "make_optimizer", "make_train_step",
-    "resolve_device", "return_union_sets_descending_order", "seven_from_sums",
-    "seven_losses_lowres",
+    "EPS", "LOSS_NAMES", "TrainState", "binary_cross_entropy", "binary_cross_entropy_list",
+    "build_model", "classification_dice_list", "composite_jitters", "create_train_state",
+    "cross_entropy_list", "dice_score", "focal_list", "intersection_loss", "make_eval_step",
+    "make_forward", "make_optimizer", "make_train_step", "prob_cross_entropy",
+    "relative_ratios", "resolve_device", "return_union_sets_descending_order",
+    "sequential_cross_organ_losses", "sequential_densenet_composite",
+    "sequential_densenet_composite_deadbranch", "seven_from_sums", "seven_losses",
+    "seven_losses_composite_general", "seven_losses_lowres", "union_loss",
 ]

@@ -1,3 +1,4 @@
-"""Ops of the port: the f32 matrix resize, the fused head loss and the
-tiled-CLAHE apply, whose CUDA kernels live in ``csrc/`` and are built by
-``_build`` at first use."""
+"""Ops of the port: the f32 matrix resize (``resize``), the fused
+low-resolution head loss (``head_loss``), the full-resolution loss sums
+(``loss_sums``) and the tiled-CLAHE apply (``clahe_tiled``), whose CUDA
+kernels live in ``csrc/`` and are built by ``_build`` at first use."""

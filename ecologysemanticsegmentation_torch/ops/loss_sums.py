@@ -1,19 +1,46 @@
-"""The eight masked per-channel loss sums (plain PyTorch; port of the
-constants and ``_sums_reference`` of
+"""The eight masked per-channel loss sums of the full-resolution losses,
+differentiable in both inputs (port of
 ``ecologysemanticsegmentation_tpu/ops/pallas/loss_sums.py``).
 
 Rows: Σg, Σp, Σp², Σgp, Σ(1−p)^1.5·log(p+ε), Σp^1.5·log(1−p+ε),
-Σ max(p,0)+log1p(e^−|p|), and the count of non-ignored pixels.  The
-``loss_sums`` kernel itself (the full-resolution loss path) is not ported yet.
+Σ max(p,0)+log1p(e^−|p|), and the count of non-ignored pixels.
+
+On CUDA tensors :func:`loss_sums_nhwc` and :func:`fused_loss_sums` launch
+the hand-written kernels of ``csrc/loss_sums.cu`` (forward sums; backward
+one elementwise pass writing dp and dg), which read NHWC in place.  On CPU
+tensors they run the plain versions kept here, :func:`_sums_reference` and
+:func:`loss_sums_bwd_reference`.  Any other device raises.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
+
+from . import _build
 
 EPS = 1e-7
 GAMMA = 1.5
 NUM_SUMS = 8  # 7 sums + element count
+MAX_CHANNELS = 16
+PIX_PER_BLOCK = 4096  # pixels per forward block (16 per thread)
+
+# Kernel launches on the main path, one per forward and one per backward.
+launches = {"loss_sums_fwd": 0, "loss_sums_bwd": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_SIGNATURES = {
+    "loss_sums_fwd": [_P, _P, _L, _L, _L, _I, _L, _P, _P],
+    "loss_sums_bwd": [_P, _P, _L, _L, _L, _I, _P, _P, _P, _P],
+}
+
+
+def library() -> ctypes.CDLL:
+    """The kernels' shared library, built from ``csrc/loss_sums.cu`` at first use."""
+    return _build.load("loss_sums", _SIGNATURES)
 
 
 def _sums_reference(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -35,3 +62,155 @@ def _sums_reference(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         (w * (torch.clamp(p, min=0.0) + torch.log1p(torch.exp(-p.abs())))).sum(1),
         w.sum(1),
     ])
+
+
+def loss_sums_bwd_reference(p: torch.Tensor, g: torch.Tensor, cot: torch.Tensor
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain analytic backward of :func:`_sums_reference` on (C, N) inputs
+    with an (8, C) cotangent: the formula of the Pallas ``_bwd_kernel``,
+    ``dp = mask * sum_k w_k ds_k/dp`` and ``dg = (w_0 + w_3 p) * mask``."""
+    p = p.float()
+    g = g.float()
+    msk = (g >= 0).float()
+    g = g * msk
+    k = cot.float()
+
+    def wc(i):  # cotangent weight of sum i, shaped (C, 1) for broadcast
+        return k[i][:, None]
+
+    omp = 1.0 - p
+    dp = msk * (
+        wc(1)
+        + wc(2) * 2.0 * p
+        + wc(3) * g
+        + wc(4) * (omp * torch.sqrt(omp) / (p + EPS)
+                   - GAMMA * torch.sqrt(omp) * torch.log(p + EPS))
+        + wc(5) * (GAMMA * torch.sqrt(p) * torch.log(omp + EPS)
+                   - p * torch.sqrt(p) / (omp + EPS))
+        # d/dp [max(p,0) + log1p(e^-|p|)] = 1{p>0} - sign(p)/(1 + e^|p|)
+        + wc(6) * ((p > 0).float() - torch.sign(p) / (1.0 + torch.exp(p.abs())))
+    )
+    dg = (wc(0) + wc(3) * p) * msk
+    return dp, dg
+
+
+def _check(p: torch.Tensor, g: torch.Tensor) -> None:
+    """``p``, ``g``: (N, C) pixel-major, float32, on one device."""
+    if p.dim() != 2 or p.shape != g.shape:
+        raise ValueError(f"p and g must have one (N, C) shape, got {tuple(p.shape)} "
+                         f"and {tuple(g.shape)}")
+    n, c = p.shape
+    if not 1 <= c <= MAX_CHANNELS:
+        raise ValueError(f"{c} channels: the loss-sums kernel takes 1..{MAX_CHANNELS}")
+    if n == 0:
+        raise ValueError("no pixels to reduce")
+    if p.dtype != torch.float32 or g.dtype != torch.float32:
+        raise TypeError(f"p and g must be float32, got {p.dtype} and {g.dtype}")
+    if p.device != g.device:
+        raise ValueError(f"p on {p.device}, g on {g.device}")
+    if p.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"no loss-sums implementation for {p.device}")
+
+
+def _rows(t: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """(N, C) ``t`` and the pixel stride at which the kernel reads it: in
+    place when its channels are adjacent (a contiguous NHWC tensor, or a
+    channel slice of one), else a contiguous copy."""
+    if t.shape[1] == 1 or t.stride(1) == 1:
+        return t, t.stride(0)
+    return t.contiguous(), t.shape[1]
+
+
+def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def _stream(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _check_cuda(p: torch.Tensor, g: torch.Tensor) -> None:
+    _check(p, g)
+    if not p.is_cuda:
+        raise ValueError(f"the CUDA kernels take CUDA tensors, got {p.device}")
+
+
+def loss_sums_cuda(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Forward kernel on (N, C) inputs: (8, C) f32 sums.  Per-block partials
+    are summed here in a fixed order (deterministic; no float atomics)."""
+    _check_cuda(p, g)
+    n, c = p.shape
+    p, sp = _rows(p)
+    g, sg = _rows(g)
+    nblk = -(-n // PIX_PER_BLOCK)
+    partials = torch.empty((nblk, NUM_SUMS, c), dtype=torch.float32, device=p.device)
+    rc = library().loss_sums_fwd(_ptr(p), _ptr(g), sp, sg, n, c, PIX_PER_BLOCK,
+                                 _ptr(partials), _stream(p.device))
+    if rc != 0:
+        raise RuntimeError(f"loss_sums_fwd: launch failed with cudaError_t {rc}")
+    launches["loss_sums_fwd"] += 1
+    return partials.sum(0)
+
+
+def loss_sums_bwd_cuda(p: torch.Tensor, g: torch.Tensor, cot: torch.Tensor,
+                       need_dp: bool = True, need_dg: bool = True
+                       ) -> tuple[torch.Tensor | None, torch.Tensor | None]:
+    """Backward kernel on (N, C) inputs: ``(dp, dg)``, each (N, C) f32
+    contiguous, or None where not asked for."""
+    _check_cuda(p, g)
+    if not (need_dp or need_dg):
+        raise ValueError("the backward needs dp or dg")
+    n, c = p.shape
+    p, sp = _rows(p)
+    g, sg = _rows(g)
+    k = cot.to(device=p.device, dtype=torch.float32).contiguous()
+    if k.shape != (NUM_SUMS, c):
+        raise ValueError(f"cotangent must be ({NUM_SUMS}, {c}), got {tuple(k.shape)}")
+    dp = torch.empty((n, c), dtype=torch.float32, device=p.device) if need_dp else None
+    dg = torch.empty((n, c), dtype=torch.float32, device=p.device) if need_dg else None
+    rc = library().loss_sums_bwd(_ptr(p), _ptr(g), sp, sg, n, c, _ptr(k), _ptr(dp), _ptr(dg),
+                                 _stream(p.device))
+    if rc != 0:
+        raise RuntimeError(f"loss_sums_bwd: launch failed with cudaError_t {rc}")
+    launches["loss_sums_bwd"] += 1
+    return dp, dg
+
+
+class _LossSums(torch.autograd.Function):
+    """(N, C) p, g -> (8, C) sums, with gradients for both inputs."""
+
+    @staticmethod
+    def forward(ctx, p, g):
+        ctx.save_for_backward(p, g)
+        if p.is_cuda:
+            return loss_sums_cuda(p, g)
+        return _sums_reference(p.T, g.T)
+
+    @staticmethod
+    def backward(ctx, cot):
+        p, g = ctx.saved_tensors
+        need_dp, need_dg = ctx.needs_input_grad
+        if p.is_cuda:
+            return loss_sums_bwd_cuda(p, g, cot, need_dp, need_dg)
+        dp, dg = loss_sums_bwd_reference(p.T, g.T, cot)
+        return (dp.T if need_dp else None), (dg.T if need_dg else None)
+
+
+def fused_loss_sums(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """(C, N) f32 probabilities and labels -> (8, C) f32 sums,
+    differentiable in both.  Labels below 0 are ignored."""
+    _check(p.T, g.T)
+    return _LossSums.apply(p.T, g.T)
+
+
+def loss_sums_nhwc(probs: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """NHWC (any leading axes, channels last) f32 probabilities and labels ->
+    (8, C) sums, differentiable in both.  The kernel reads the tensors in
+    place, a channel slice of a wider tensor too."""
+    if probs.shape != labels.shape or probs.dim() < 1:
+        raise ValueError(f"probs and labels must have one shape, got {tuple(probs.shape)} "
+                         f"and {tuple(labels.shape)}")
+    c = probs.shape[-1]
+    p, g = probs.reshape(-1, c), labels.reshape(-1, c)
+    _check(p, g)
+    return _LossSums.apply(p, g)

@@ -2,12 +2,13 @@ from .trainer import (
     TrainState,
     create_train_state,
     init_weights,
+    make_eval_step,
     make_forward,
     make_optimizer,
     make_train_step,
 )
 
 __all__ = [
-    "TrainState", "create_train_state", "init_weights", "make_forward", "make_optimizer",
-    "make_train_step",
+    "TrainState", "create_train_state", "init_weights", "make_eval_step",
+    "make_forward", "make_optimizer", "make_train_step",
 ]

@@ -1,7 +1,8 @@
-"""Train step, train state and inference forward (PyTorch port of
-``ecologysemanticsegmentation_tpu/train/trainer.py``), for the flagship
-path: device augmentation, DeepLabV3+ with ``upsample_head=False`` and the
-fused low-resolution head loss.
+"""Train step, eval step, train state and inference forward (PyTorch port
+of ``ecologysemanticsegmentation_tpu/train/trainer.py``): device
+augmentation, then either the fused low-resolution head loss (the flagship,
+DeepLabV3+ with ``upsample_head=False``) or the full-resolution losses
+(plain, sequential or general composite) through the loss-sums kernel.
 
 On a CUDA device the model runs under bf16 autocast with float32 parameters
 (the JAX package's bf16-compute/f32-params); on the CPU it runs in float32,
@@ -19,7 +20,16 @@ import torch
 from torch import nn
 
 from ..data.augment import augment_batch
-from ..losses import LOSS_NAMES, return_union_sets_descending_order, seven_losses_lowres
+from ..losses import (
+    LOSS_NAMES,
+    binary_cross_entropy,
+    dice_score,
+    return_union_sets_descending_order,
+    sequential_cross_organ_losses,
+    seven_losses,
+    seven_losses_composite_general,
+    seven_losses_lowres,
+)
 from ..models.common import BatchNorm2d
 
 
@@ -84,9 +94,14 @@ def _autocast(device: torch.device):
     return torch.autocast(device.type, dtype=torch.bfloat16, enabled=device.type == "cuda")
 
 
-def make_train_step(model: nn.Module, tx, augment: bool = False,
-                    lowres_head: bool = True) -> Callable:
-    """The flagship train step.
+COMPOSITE_MODES = ("none", "general", "sequential")
+
+
+def make_train_step(model: nn.Module, tx, composite_mode: str = "none", augment: bool = True,
+                    loss_formula: str = "multiclass", deepsupervision: bool = False,
+                    lowres_head: bool = False, k_steps: int = 1, scan_unroll: int = 1,
+                    spatial_mesh=None) -> Callable:
+    """The train step, with the JAX package's signature and defaults.
 
     ``step(state, batch, rng, bg_weight, gates3, lr, jitters) -> (state, metrics)``
     with ``batch = {"image": (B, H, W, 3), "label": (B, H, W, C)}`` NHWC,
@@ -97,19 +112,52 @@ def make_train_step(model: nn.Module, tx, augment: bool = False,
     generator, which draws the augmentation's per-sample values and then
     the dropout masks.  Augmentation (:func:`..data.augment.augment_batch`,
     CLAHE form from ``AUGMENT_TILED_CLAHE``) runs on the device before label
-    prep, as in the JAX step.  ``bg_weight`` and ``jitters`` are accepted
-    for the JAX signature and unused on this path (multi-organ drops the
-    background weight; no composite loss).
+    prep, as in the JAX step.
+
+    ``lowres_head=False`` (a model built with ``upsample_head=True``): the
+    loss is ``composite_mode``'s 7-tuple of ``sigmoid(logits)`` at full
+    resolution through the loss-sums kernel: "none" is
+    :func:`..losses.seven_losses` with ``bg_weight`` (which only a
+    single-organ model uses), "sequential" the sequential trainer's
+    :func:`..losses.sequential_cross_organ_losses`, "general"
+    :func:`..losses.seven_losses_composite_general` with ``jitters`` as its
+    early-stop weights (None for none).  ``lowres_head=True`` (a model built
+    with ``upsample_head=False``): the fused low-resolution head loss,
+    plain multi-organ losses only.  ``loss_formula`` ("multiclass" or
+    "sequential") names the trainer whose gate sum is used; both sums are
+    the same.  ``k_steps``, ``scan_unroll`` and ``spatial_mesh`` are the
+    JAX signature's; only their defaults are ported.
+
     ``state`` is updated in place and returned.  ``tx`` is consumed by
     :func:`create_train_state`, which puts the optimizer in the state."""
-    if not lowres_head:
-        raise NotImplementedError(
-            "the full-resolution loss path needs the loss_sums kernel, not ported yet "
-            "(ROADMAP queue 2, item 3)")
-    del tx
+    if composite_mode not in COMPOSITE_MODES:
+        raise ValueError(f"composite_mode {composite_mode!r} is not one of {COMPOSITE_MODES}")
+    if loss_formula not in ("multiclass", "sequential"):
+        raise ValueError(f"loss_formula {loss_formula!r} is not 'multiclass' or 'sequential'")
+    if lowres_head and composite_mode != "none":
+        raise ValueError("lowres_head folds the upsample into the plain seven_losses path; "
+                         f"composite_mode={composite_mode!r} needs lowres_head=False")
+    if deepsupervision:
+        raise NotImplementedError("deepsupervision needs the VGG models' side heads, not "
+                                  "ported yet (ROADMAP queue 1, item 12)")
+    if k_steps != 1:
+        raise NotImplementedError("k_steps > 1 is the JAX package's scan of steps in one "
+                                  "dispatch, which amortizes TPU dispatch and changes no "
+                                  "result; it is not ported (ROADMAP, 'Not ported on purpose')")
+    if spatial_mesh is not None:
+        raise NotImplementedError("spatial_mesh (the --spatial_partition path) comes with the "
+                                  "parallel module (ROADMAP queue 1, item 15)")
+    del tx, scan_unroll
+
+    def seven_fn(probs, labels, bg_weight, jitters):
+        if composite_mode == "general":
+            return seven_losses_composite_general(probs, labels, bg_weight,
+                                                  early_stop_weights=jitters)
+        if composite_mode == "sequential":
+            return sequential_cross_organ_losses(probs, labels)
+        return seven_losses(probs, labels, bg_weight)
 
     def step(state: TrainState, batch, rng, bg_weight, gates3, lr, jitters):
-        del bg_weight, jitters
         if state.model is not model:
             raise ValueError("state was created for another model")
         param = next(model.parameters())
@@ -129,7 +177,10 @@ def make_train_step(model: nn.Module, tx, augment: bool = False,
         model.train()
         with _autocast(dev):
             out = model(images, generator=rng)
-        seven = seven_losses_lowres(out, labels)
+        if lowres_head:
+            seven = seven_losses_lowres(out, labels)
+        else:
+            seven = seven_fn(torch.sigmoid(out.float()), labels, bg_weight, jitters)
         loss = gates[0] * seven[6] + gates[1] * seven[1] + gates[2] * (seven[4] + seven[5])
 
         opt = state.optimizer
@@ -146,6 +197,44 @@ def make_train_step(model: nn.Module, tx, augment: bool = False,
         return state, metrics
 
     return step
+
+
+def make_eval_step(model: nn.Module, apply_union_reverse: bool = False) -> Callable:
+    """Eval step: forward, sigmoid, per-organ Dice and the val BCE.
+
+    ``eval_step(state, batch) -> {"probs", "dice", "bce", "valid"}``:
+    probabilities (B, H, W, C) f32 of the main head (a tuple output's
+    first element), the per-organ :func:`..losses.dice_score` against the
+    binarized labels, :func:`..losses.binary_cross_entropy` of the
+    probabilities, and ``valid`` (C,), 1 where the batch has a non-ignored
+    label pixel of the organ.  ``apply_union_reverse`` turns the predicted
+    nested unions back into organ sets before scoring (the sequential
+    evaluator).  ``state`` is accepted for the JAX signature; the model holds
+    its weights."""
+
+    @torch.no_grad()
+    def eval_step(state, batch):
+        del state
+        param = next(model.parameters())
+        dev = param.device
+        images = torch.as_tensor(batch["image"], device=dev).to(torch.bfloat16).to(param.dtype)
+        labels = torch.as_tensor(batch["label"], device=dev)
+        labels = torch.where(labels > 0, 1.0, labels)
+        model.eval()
+        with _autocast(dev):
+            out = model(images)
+        if isinstance(out, tuple):
+            out = out[0]
+        probs = torch.sigmoid(out.float())
+        scored = probs
+        if apply_union_reverse:
+            scored = return_union_sets_descending_order(probs, reverse=True)
+        dice = dice_score(scored, labels)
+        valid = ((labels >= 0).sum((0, 1, 2)) > 0).float()
+        bce = binary_cross_entropy(probs, labels)
+        return {"probs": probs, "dice": dice, "bce": bce, "valid": valid}
+
+    return eval_step
 
 
 def make_forward(model: nn.Module) -> Callable:

@@ -338,7 +338,7 @@ def test_augmented_step_is_step_of_augmented_batch():
                               upsample_head=False).to(memory_format=torch.channels_last)
         tx = make_optimizer(1e-3)
         state = create_train_state(model, torch.Generator().manual_seed(0), tx)
-        step = make_train_step(model, tx, augment=augment)
+        step = make_train_step(model, tx, augment=augment, lowres_head=True)
         host, dev = torch.Generator().manual_seed(2), torch.Generator().manual_seed(3)
         if augment:
             state, met = step(state, batch, (host, dev), 0.0, [1.0, 1.0, 1.0], 1e-3, None)
@@ -352,5 +352,5 @@ def test_augmented_step_is_step_of_augmented_batch():
         assert torch.equal(met_a[k], met_b[k]), k
     assert all(torch.equal(a, b) for a, b in zip(par_a, par_b))
     with pytest.raises(TypeError, match="host_gen"):
-        step_a = make_train_step(model, make_optimizer(), augment=True)
+        step_a = make_train_step(model, make_optimizer(), augment=True, lowres_head=True)
         step_a(state, batch, torch.Generator(), 0.0, [1.0, 1.0, 1.0], 1e-3, None)

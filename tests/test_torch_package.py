@@ -4,9 +4,9 @@
 * Entry points run on CUDA by default and raise without a card unless the
   caller passes ``device="cpu"``.
 * The head-loss wrapper rejects what its kernel does not take.
-* ``-m gpu`` (on the H100): the CUDA kernels (head loss, tiled-CLAHE apply)
-  build and agree with their plain versions.  Here, without a card, those
-  tests skip.
+* ``-m gpu`` (on the H100): the CUDA kernels (head loss, loss sums,
+  tiled-CLAHE apply) build and agree with their plain versions.  Here,
+  without a card, those tests skip.
 """
 
 import os
@@ -21,6 +21,7 @@ import torch
 import ecologysemanticsegmentation_torch as est
 from ecologysemanticsegmentation_torch.ops import clahe_tiled as ct
 from ecologysemanticsegmentation_torch.ops import head_loss as hl
+from ecologysemanticsegmentation_torch.ops import loss_sums as tls
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -66,11 +67,21 @@ def test_build_model_names():
 
 
 def test_train_step_scope():
-    """Augmentation is ported; the full-resolution loss path is not."""
-    model = est.build_model(num_classes=3, upsample_head=False, device="cpu")
-    assert callable(est.make_train_step(model, est.make_optimizer(), augment=True))
-    with pytest.raises(NotImplementedError, match="loss_sums"):
-        est.make_train_step(model, est.make_optimizer(), lowres_head=False)
+    """Augmentation and the full-resolution loss path are ported; deep
+    supervision (VGG), the multi-step scan and the spatial mesh are not."""
+    model = est.build_model(num_classes=3, device="cpu")
+    tx = est.make_optimizer()
+    assert callable(est.make_train_step(model, tx, augment=True, lowres_head=True))
+    for mode in ("none", "sequential", "general"):
+        assert callable(est.make_train_step(model, tx, composite_mode=mode, lowres_head=False))
+    for kwargs, item in [({"deepsupervision": True}, "item 12"), ({"k_steps": 2}, "on purpose"),
+                         ({"spatial_mesh": object()}, "item 15")]:
+        with pytest.raises(NotImplementedError, match=item):
+            est.make_train_step(model, tx, **kwargs)
+    with pytest.raises(ValueError, match="lowres_head"):
+        est.make_train_step(model, tx, composite_mode="sequential", lowres_head=True)
+    with pytest.raises(ValueError, match="composite_mode"):
+        est.make_train_step(model, tx, composite_mode="other")
 
 
 def _ok():
@@ -148,3 +159,38 @@ def test_cuda_clahe_kernel_matches_plain(cuda, b, h, w, bins, tiles):
     assert ct.launches["clahe_tiled"] == before + 1
     want = ct.tiled_clahe_new_luma(luma.cpu(), deltas.cpu(), tiles)
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,sl", [
+    ((2, 16, 16, 3), None), ((3, 9, 11, 1), None), ((1, 33, 35, 11), None),
+    ((2, 8, 8, 3), slice(1, 2)), ((1, 64, 64, 16), None),
+])
+def test_cuda_loss_sums_kernels_match_plain(cuda, shape, sl):
+    """Sums at rtol 1e-4 (f32 sums in another order), the count row
+    exactly; dp and dg at 1e-4 of their largest entry."""
+    rs = np.random.RandomState(0)
+    g = (rs.rand(*shape) > 0.5).astype(np.float32)
+    g[rs.rand(*shape) < 0.05] = -1.0
+    pf = torch.tensor(rs.rand(*shape), dtype=torch.float32, device=cuda, requires_grad=True)
+    gf = torch.tensor(g, device=cuda, requires_grad=True)
+    sl = slice(None) if sl is None else sl
+    p, g = pf[..., sl], gf[..., sl]  # a slice is read in place, through its pixel stride
+    c = p.shape[-1]
+    cot = torch.tensor(rs.randn(8, c), dtype=torch.float32, device=cuda)
+    before = dict(tls.launches)
+    sums = tls.loss_sums_nhwc(p, g)
+    (sums * cot).sum().backward()
+    torch.cuda.synchronize()
+    p, g = p.detach(), g.detach()
+    assert tls.launches["loss_sums_fwd"] == before["loss_sums_fwd"] + 1
+    assert tls.launches["loss_sums_bwd"] == before["loss_sums_bwd"] + 1
+    p2, g2 = p.reshape(-1, c).T, g.reshape(-1, c).T
+    ref = tls._sums_reference(p2, g2)
+    dref, gref = tls.loss_sums_bwd_reference(p2, g2, cot)
+    torch.testing.assert_close(sums, ref, rtol=1e-4, atol=1e-3)
+    assert torch.equal(sums[7], (g >= 0).reshape(-1, c).sum(0).float())
+    torch.testing.assert_close(pf.grad[..., sl].reshape(-1, c).T, dref, rtol=0,
+                               atol=1e-4 * dref.abs().max().item())
+    torch.testing.assert_close(gf.grad[..., sl].reshape(-1, c).T, gref, rtol=0,
+                               atol=1e-4 * gref.abs().max().item())

@@ -118,7 +118,7 @@ def runs():
 
     # Port.
     pstate = TrainState(step=0, model=model, optimizer=make_optimizer(LR)(model.parameters()))
-    pstep = make_train_step(model, make_optimizer(LR))
+    pstep = make_train_step(model, make_optimizer(LR), augment=False, lowres_head=True)
     batch = {"image": torch.from_numpy(images), "label": torch.from_numpy(labels)}
     gen = torch.Generator().manual_seed(1)
     port_run = []
