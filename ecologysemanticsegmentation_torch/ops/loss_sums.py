@@ -198,7 +198,9 @@ class _LossSums(torch.autograd.Function):
 
 def fused_loss_sums(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """(C, N) f32 probabilities and labels -> (8, C) f32 sums,
-    differentiable in both.  Labels below 0 are ignored."""
+    differentiable in both.  Labels below 0 are ignored.  The JAX
+    package's layout; for C > 1 the kernel reads a pixel-major copy, so the
+    port's losses call :func:`loss_sums_nhwc`."""
     _check(p.T, g.T)
     return _LossSums.apply(p.T, g.T)
 

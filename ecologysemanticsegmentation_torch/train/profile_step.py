@@ -97,8 +97,7 @@ def _batch(organs: int) -> dict:
     gen = torch.Generator().manual_seed(1)
     shape = (BATCH_SIZE, IMG, IMG, organs)
     label = (torch.rand(shape, generator=gen) > 0.5).float()
-    if organs > 1:  # single organ: clean labels (chip_smoke.py says why)
-        label[torch.rand(shape, generator=gen) < 0.05] = -1.0
+    label[torch.rand(shape, generator=gen) < 0.05] = -1.0
     image = torch.rand((BATCH_SIZE, IMG, IMG, 3), generator=gen)
     return {"image": image.cuda(), "label": label.cuda()}
 
