@@ -14,7 +14,11 @@ exit code before the result line is printed):
 3. kernels: every kernel against its plain PyTorch version on the card at the
    main paths' shapes and at the other shapes it serves, with its time, the
    plain version's time and its bound (the head loss also at 512, 768 and
-   1024 px; the loss sums at the sequential step's C = 3 and C = 1 calls,
+   1024 px; its per-shard form, the head-loss kernels launched with a row
+   block's tap tables, at the 512 px spatial step's shard shapes for every
+   block of a 2- and 4-way split at C = 3, 1 and 11, dlogits element by
+   element, and the blocks added together against the unsharded kernel;
+   the loss sums at the sequential step's C = 3 and C = 1 calls,
    their gradients element by element, and the single-organ call with
    ``-1`` labels in the prediction slot, NaN where the plain version is);
    device augmentation on the card against the same draws on the CPU, in
@@ -37,7 +41,20 @@ exit code before the result line is printed):
    after: every kernel of its path must have launched as often as the path
    calls it (the loss sums twice a step in the sequential step, once in the
    single-organ step; no other kernel's count may move), and the loss must
-   be finite and fall.
+   be finite and fall;
+6. parallel: four ranks on the one card (``cuda:0``) over a gloo group
+   (NCCL refuses two ranks on one device), spawned with a timeout.  (a)
+   Small float64 steps (64 px, batch 4, decoder 32, dropout 0), each
+   against the one-rank step on the card from the same weights and batch:
+   the spatial flagship and sequential steps on a (2, 2) grid and the
+   data-parallel flagship step on (4, 1).  (b) The spatial flagship at full
+   width: (2, 2) grid, 512 px, global batch 16, augmentation with the
+   global CLAHE, bf16 autocast, 13 steps, counters zeroed just before and
+   read just after on every rank (13 + 13 per-shard head-loss launches, no
+   other kernel's); the loss finite, falling and equal on every rank, and
+   the parameters and BN buffers bitwise equal on every rank.  Its ms/step
+   and peak memory are of four ranks time-sharing one card with
+   host-staged collectives, not a multi-card figure.
 
 The device time of the step by layer is not measured here:
 ``python3 -m ecologysemanticsegmentation_torch.train.profile_step`` does that.
@@ -248,6 +265,114 @@ def check_kernels(card: str) -> dict:
             name="head_loss_bwd", route="cuda", source=src, replaces=f"{tpu}:143",
             max_abs_err=bwd_err, ms=bwd_ms, plain_ms=bwd_plain, bound_ms=bb, bound_by=bby,
             library_ms=None)
+    return report
+
+
+# The per-shard head loss (B, h, w, H, W, C): the 512 px spatial step's
+# shard shapes (batch 8 per data rank, 128 -> 512 rows), at C = 3 (the main
+# path's), 1 and 11; every row block of n = 2 (256 rows each) and n = 4.
+SHARD_SHAPES = [(8, 128, 128, 512, 512, 3), (8, 128, 128, 512, 512, 1),
+                (8, 128, 128, 512, 512, 11)]
+SHARD_SPLITS = (2, 4)
+# dlogits element by element: |got - want| <= SHARD_GRAD_RTOL |want| +
+# SHARD_GRAD_ATOL max |want|.  Each dlogit sums up to ~64 f32 terms of
+# bounded size (sigma' caps every dp term), so reordering them moves it by
+# ~1e-6 of the largest |dlogit|; the relative part covers the rest.
+SHARD_GRAD_RTOL, SHARD_GRAD_ATOL = 1e-4, 1e-5
+
+
+def check_shard_kernels(card: str) -> dict:
+    """Phase 3: the per-shard head loss (the kernels launched with a row
+    block's tap tables) against its plain version on every row block of
+    n = 2 and n = 4; the blocks' sums and dlogits added together against
+    the unsharded kernel's.  Time, plain time and bound at the main path's
+    block (C = 3, n = 2, first block); also the loss-sums kernel's time at
+    that block's full-resolution shape, the per-shard call of the
+    sequential spatial step (PERF.md row 8)."""
+    import torch
+
+    from ecologysemanticsegmentation_torch.ops import head_loss as hl
+    from ecologysemanticsegmentation_torch.ops import loss_sums as ls
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    report = {}
+    for B, h, w, H, W, C in SHARD_SHAPES:
+        logits, labels, cot = _head_inputs((B, h, w, H, W, C, True), gen)
+        full = hl.head_sums_cuda(logits, labels)
+        dfull = hl.head_sums_bwd_cuda(logits, labels, cot)
+        for n in SHARD_SPLITS:
+            rows = H // n
+            total, dtotal, worst, dworst = 0.0, 0.0, 0.0, 0.0
+            for k in range(n):
+                block = labels[:, k * rows:(k + 1) * rows].contiguous()
+                sums = hl.head_sums_shard_cuda(logits, block, H, k * rows)
+                ref = hl.head_sums_shard_reference(logits, block, H, k * rows)
+                dx = hl.head_sums_shard_bwd_cuda(logits, block, cot, H, k * rows)
+                dref = hl.head_sums_shard_bwd_reference(logits, block, cot, H, k * rows)
+                torch.cuda.synchronize()
+                fwd_ok, fwd_err = _close(sums, ref, SUM_RTOL, 1e-3)
+                bwd_ok, bwd_err = _close(dx, dref, SHARD_GRAD_RTOL,
+                                         SHARD_GRAD_ATOL * dref.abs().max().item())
+                exact = bool((sums[7] == (block >= 0).sum((0, 1, 2)).float()).all())
+                if not (fwd_ok and bwd_ok and exact and torch.isfinite(dx).all()):
+                    raise AssertionError(
+                        f"per-shard head loss disagrees with its plain version at "
+                        f"{(B, h, w, H, W, C)}, block {k} of {n}: sums err {fwd_err:.6g}, "
+                        f"dlogits err {bwd_err:.6g}, count exact {exact}")
+                worst, dworst = max(worst, fwd_err), max(dworst, bwd_err)
+                total, dtotal = total + sums, dtotal + dx
+            sum_ok, sum_err = _close(total, full, SUM_RTOL, 1e-3)
+            grad_ok, grad_err = _close(dtotal, dfull, SHARD_GRAD_RTOL,
+                                       SHARD_GRAD_ATOL * dfull.abs().max().item())
+            print(f"kernel check head_loss_shard {(B, h, w, H, W, C)} n={n}: sums max_abs_err "
+                  f"{worst:.6g} (max |sum| {full.abs().max().item():.6g}), dlogits max_abs_err "
+                  f"{dworst:.6g} (max |dlogits| {dfull.abs().max().item():.6g}; elementwise "
+                  f"rtol {SHARD_GRAD_RTOL}, atol {SHARD_GRAD_ATOL} of max), count rows exact; "
+                  f"blocks summed vs unsharded kernel: sums {sum_err:.6g}, dlogits "
+                  f"{grad_err:.6g}", flush=True)
+            if not (sum_ok and grad_ok and torch.equal(total[7], full[7])):
+                raise AssertionError(f"the {n} blocks' sums or dlogits do not add up to the "
+                                     f"unsharded kernel's at {(B, h, w, H, W, C)}")
+            if (C, n) != (3, 2):
+                continue
+            rows = H // n
+            block = labels[:, :rows].contiguous()
+            fwd_ms = _time_ms(lambda: hl.head_sums_shard_cuda(logits, block, H, 0))
+            fwd_plain = _time_ms(lambda: hl.head_sums_shard_reference(logits, block, H, 0),
+                                 iters=5)
+            bwd_ms = _time_ms(lambda: hl.head_sums_shard_bwd_cuda(logits, block, cot, H, 0))
+            bwd_plain = _time_ms(
+                lambda: hl.head_sums_shard_bwd_reference(logits, block, cot, H, 0), iters=5)
+            elems = B * rows * W * C
+            in_bytes = block.numel() * 2 + logits.numel() * 4
+            fb, fby = _bound(in_bytes + 8 * C * 4, elems * FWD_OPS_PER_ELEM)
+            bb, bby = _bound(in_bytes + 8 * C * 4 + logits.numel() * 4, elems * BWD_OPS_PER_ELEM)
+            print(f"kernel times head_loss_shard at {(B, h, w, rows, W, C)} of H={H} [{card}]: "
+                  f"fwd {fwd_ms:.4f} ms (plain {fwd_plain:.4f}, bound {fb:.4f} by {fby}), bwd "
+                  f"{bwd_ms:.4f} ms (plain {bwd_plain:.4f}, bound {bb:.4f} by {bby})", flush=True)
+            src = "ecologysemanticsegmentation_torch/ops/csrc/head_loss.cu"
+            tpu = "ecologysemanticsegmentation_tpu/ops/pallas/head_loss.py"
+            report["head_loss_shard_fwd"] = dict(
+                name="head_loss_shard_fwd", route="cuda", source=src, replaces=f"{tpu}:358",
+                max_abs_err=worst, ms=fwd_ms, plain_ms=fwd_plain, bound_ms=fb, bound_by=fby,
+                library_ms=None)
+            report["head_loss_shard_bwd"] = dict(
+                name="head_loss_shard_bwd", route="cuda", source=src, replaces=f"{tpu}:382",
+                max_abs_err=dworst, ms=bwd_ms, plain_ms=bwd_plain, bound_ms=bb, bound_by=bby,
+                library_ms=None)
+            # Row 8: the loss-sums kernel on one shard's full-resolution block.
+            probs = torch.rand((B, rows, W, C), generator=gen, device="cuda").reshape(-1, C)
+            g2 = block.float().reshape(-1, C)
+            lf = _time_ms(lambda: ls.loss_sums_cuda(probs, g2))
+            lf_plain = _time_ms(lambda: ls._sums_reference(probs.T, g2.T), iters=5)
+            lb = _time_ms(lambda: ls.loss_sums_bwd_cuda(probs, g2, cot, True, False))
+            lb_plain = _time_ms(lambda: ls.loss_sums_bwd_reference(probs.T, g2.T, cot), iters=5)
+            lfb, lfby = _bound(8 * elems + 8 * C * 4, elems * LS_FWD_OPS_PER_ELEM)
+            lbb, lbby = _bound(12 * elems + 8 * C * 4, elems * LS_DP_OPS_PER_ELEM)
+            print(f"kernel times loss_sums per shard at {(B, rows, W, C)} [{card}]: fwd {lf:.4f} "
+                  f"ms (plain {lf_plain:.4f}, bound {lfb:.4f} by {lfby}), bwd writing dp "
+                  f"{lb:.4f} ms (plain {lb_plain:.4f}, both gradients; bound {lbb:.4f} by "
+                  f"{lbby})", flush=True)
     return report
 
 
@@ -773,6 +898,244 @@ def run_main_path(card: str) -> dict:
     return counts
 
 
+# Phase 6: four ranks on the one card over gloo (NCCL refuses two ranks on
+# one device; gloo stages the collectives through host memory).
+PAR_WORLD = 4
+PAR_TIMEOUT_S = 600      # the whole phase; a hang fails the run
+PAR_SMALL = dict(img=64, batch=4, organs=3, features=32)  # float64, dropout 0
+PAR_SMALL_CASES = [("flagship", 2), ("sequential", 2), ("flagship", 1)]  # (step, model axis)
+PAR_FULL = dict(img=512, batch=16, organs=3, model_parallel=2, steps=13, timed=10)
+# Adam's first step is about lr * sign(g), so where g is as small as its
+# rounding a parameter may move by up to 2 lr the other way (the JAX
+# spatial test's 2e-3 at lr 1e-3).
+PAR_LR = 1e-3
+
+
+def _digest(tensors) -> str:
+    """sha256 of named tensors' bytes: bitwise equality across ranks."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for name, t in tensors:
+        h.update(name.encode())
+        h.update(t.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _small_step(kind: str, mesh=None) -> dict:
+    """One unaugmented float64 step on the card (64 px, batch 4, decoder
+    32, dropout 0) from seed-0 weights: metrics, gradients, parameters,
+    buffers."""
+    import torch
+
+    import ecologysemanticsegmentation_torch as est
+    from ecologysemanticsegmentation_torch.models import DeepLabV3Plus
+
+    lowres = kind == "flagship"
+    cfg = PAR_SMALL
+    model = DeepLabV3Plus(num_classes=cfg["organs"], decoder_features=cfg["features"],
+                          aspp_dropout=0.0, upsample_head=not lowres).to(
+        device="cuda", dtype=torch.float64, memory_format=torch.channels_last)
+    tx = est.make_optimizer(PAR_LR)
+    state = est.create_train_state(model, torch.Generator().manual_seed(0), tx)
+    step = est.make_train_step(model, tx, composite_mode="none" if lowres else "sequential",
+                               augment=False, lowres_head=lowres, spatial_mesh=mesh)
+    batch = _batch(cfg["batch"], cfg["img"], cfg["organs"], "cuda", seed=2)
+    batch["image"] = batch["image"] * 0.5 + torch.linspace(0.0, 0.5, cfg["batch"],
+                                                           device="cuda")[:, None, None, None]
+    _, met = step(state, batch, torch.Generator(device="cuda").manual_seed(1), 0.0,
+                  [1.0, 0.5, 0.7], PAR_LR, None)
+    return {"metrics": {k: float(v) for k, v in met.items()},
+            "grads": {n: p.grad.detach().clone() for n, p in model.named_parameters()},
+            "params": {n: p.detach().clone() for n, p in model.named_parameters()},
+            "buffers": {n: b.clone() for n, b in model.named_buffers()}}
+
+
+def _parallel_rank(rank: int, port: int, queue) -> None:
+    """Phase 6 on one rank: (a) the small float64 steps on each grid
+    against the one-rank step on the card; (b) the full-width spatial
+    flagship run, counted.  Puts this rank's results on ``queue``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    import ecologysemanticsegmentation_torch as est
+    from ecologysemanticsegmentation_torch.data import augment as aug
+    from ecologysemanticsegmentation_torch.parallel import (
+        all_reduce_grads,
+        broadcast_state,
+        create_mesh,
+    )
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=PAR_WORLD,
+                            rank=rank, timeout=datetime.timedelta(seconds=PAR_TIMEOUT_S))
+    try:
+        out = {"rank": rank, "small": {}}
+        # (a) small float64 steps, each against the one-rank step on the card
+        refs = {kind: _small_step(kind) for kind in ("flagship", "sequential")}
+        for kind, model_parallel in PAR_SMALL_CASES:
+            mesh = create_mesh(model_parallel, device="cuda")
+            _zero_counters()
+            got = _small_step(kind, mesh)
+            counts = _counters()
+            want = refs[kind]
+            diffs = torch.cat([(got["params"][k] - want["params"][k]).abs().reshape(-1)
+                               for k in want["params"]])
+            out["small"][(kind, mesh.data, mesh.model)] = {
+                "loss": got["metrics"]["loss"], "want_loss": want["metrics"]["loss"],
+                "grads": max((got["grads"][k] - want["grads"][k]).abs().max().item()
+                             / max(want["grads"][k].abs().max().item(), 1e-30)
+                             for k in want["grads"]),
+                "params": diffs.max().item(), "params_mean": diffs.mean().item(),
+                "buffers": max((got["buffers"][k] - want["buffers"][k]).abs().max().item()
+                               for k in want["buffers"]),
+                "digest": _digest(sorted(got["params"].items()) + sorted(got["buffers"].items())),
+                "counts": counts}
+        del refs
+        # (b) the full-width spatial flagship run
+        cfg = PAR_FULL
+        mesh = create_mesh(cfg["model_parallel"], device="cuda")
+        aug.TILED_CLAHE = False
+        model = est.build_model("deeplabv3plus", num_classes=cfg["organs"], upsample_head=False)
+        tx = est.make_optimizer(3e-4)
+        state = est.create_train_state(model, torch.Generator().manual_seed(0), tx)
+        broadcast_state(model, mesh)
+        step = est.make_train_step(model, tx, augment=True, lowres_head=True, spatial_mesh=mesh)
+        batch = _batch(cfg["batch"], cfg["img"], cfg["organs"], "cuda", seed=4)
+        rng = (torch.Generator().manual_seed(2),
+               torch.Generator(device="cuda").manual_seed(1 + 1000 * mesh.data_index))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counters()
+        losses, warm = [], cfg["steps"] - cfg["timed"]
+        for i in range(cfg["steps"]):
+            if i == warm:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            state, met = step(state, batch, rng, 0.0, [1.0, 1.0, 1.0], 3e-4, None)
+            losses.append(met["loss"])
+        torch.cuda.synchronize()
+        out["step_ms"] = (time.perf_counter() - t0) * 1e3 / cfg["timed"]
+        out["counts"] = _counters()
+        out["losses"] = [float(x) for x in losses]
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        out["digest"] = _digest(sorted(model.named_parameters()) + sorted(model.named_buffers()))
+        out["grid"] = (mesh.data, mesh.model)
+        # What the step's collectives cost alone: the gradient all-reduce
+        # (every parameter, one buffer) and one small all-reduce (a
+        # BatchNorm layer's sums), each timed over the world.
+        out["grad_allreduce_ms"] = _time_ms(
+            lambda: all_reduce_grads(model.parameters(), mesh.world), iters=5, warmup=1)
+        small = torch.zeros(2 * 512 + 1, device="cuda")
+        out["small_allreduce_ms"] = _time_ms(lambda: dist.all_reduce(small, group=mesh.world),
+                                             iters=50, warmup=5)
+        queue.put(out)
+    finally:
+        dist.destroy_process_group()
+
+
+def check_parallel(card: str) -> dict:
+    """Phase 6: spawn ``PAR_WORLD`` ranks on cuda:0 over gloo, each running
+    :func:`_parallel_rank`; any rank's failure, or the phase outliving
+    ``PAR_TIMEOUT_S``, fails the run.  Checks (a) every small step against
+    the one-rank step (loss within 1e-5 relative, gradients within 1e-5 of
+    each tensor's scale, parameters within 2 lr, BN statistics 1e-12,
+    parameters and buffers bitwise equal on every rank) and (b) the
+    full-width run (finite, falling loss equal on every rank; parameters and
+    buffers bitwise equal on every rank; 13 + 13 per-shard head-loss
+    launches on each rank and no other kernel's).  Returns rank 0's counts
+    of (b)."""
+    import queue as queue_mod
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    t0 = time.perf_counter()
+    procs = mp.start_processes(_parallel_rank, args=(port, q), nprocs=PAR_WORLD, join=False,
+                               start_method="spawn")
+    results = []
+    try:
+        while len(results) < PAR_WORLD:
+            if time.perf_counter() - t0 > PAR_TIMEOUT_S:
+                raise TimeoutError(f"phase 6 ran past {PAR_TIMEOUT_S} s")
+            procs.join(timeout=0.01)  # raises if a rank failed
+            try:
+                results.append(q.get(timeout=1.0))
+            except queue_mod.Empty:
+                pass
+        while not procs.join(timeout=1.0):
+            if time.perf_counter() - t0 > PAR_TIMEOUT_S:
+                raise TimeoutError(f"phase 6 ran past {PAR_TIMEOUT_S} s")
+    finally:
+        for proc in procs.processes:
+            if proc.is_alive():
+                proc.terminate()
+    results.sort(key=lambda r: r["rank"])
+    print(f"parallel: {PAR_WORLD} ranks on one card over gloo, {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # (a)
+    for key in results[0]["small"]:
+        kind, data, model = key
+        for res in results:
+            r = res["small"][key]
+            rel = abs(r["loss"] - r["want_loss"]) / max(abs(r["want_loss"]), 1.0)
+            ok = (math.isfinite(r["loss"]) and rel < 1e-5 and r["grads"] <= 1e-5
+                  and r["params"] <= 2 * PAR_LR + 1e-6 and r["params_mean"] < 1e-2 * PAR_LR
+                  and r["buffers"] <= 1e-12)
+            if not ok:
+                raise AssertionError(f"parallel small step ({kind}, grid {data} x {model}), rank "
+                                     f"{res['rank']}, disagrees with the one-rank step: {r}")
+        digests = {res["small"][key]["digest"] for res in results}
+        if len(digests) != 1:
+            raise AssertionError(f"parallel small step ({kind}, grid {data} x {model}): "
+                                 f"parameters or buffers differ between ranks")
+        r = results[0]["small"][key]
+        print(f"parallel small step ({kind}, float64, grid {data} x {model}) = one-rank step: "
+              f"loss {r['loss']:.9f} vs {r['want_loss']:.9f}, gradients {r['grads']:.3g} of "
+              f"scale, params max {r['params']:.3g} mean {r['params_mean']:.3g}, BN "
+              f"{r['buffers']:.3g}; equal on all ranks; launches {r['counts']}", flush=True)
+
+    # (b)
+    cfg = PAR_FULL
+    losses = results[0]["losses"]
+    for res in results:
+        print(f"parallel full-width run, rank {res['rank']} (grid {res['grid'][0]} x "
+              f"{res['grid'][1]}): {res['step_ms']:.3f} ms/step, peak {res['peak_gib']:.3f} GiB "
+              f"allocated, launches {res['counts']}; alone: gradient all-reduce "
+              f"{res['grad_allreduce_ms']:.3f} ms, a BatchNorm-sized all-reduce "
+              f"{res['small_allreduce_ms']:.3f} ms [{card}; {PAR_WORLD} ranks time-sharing one "
+              f"card, collectives staged through host memory: not a multi-card figure]",
+              flush=True)
+        if res["losses"] != losses:
+            raise AssertionError(f"parallel run: rank {res['rank']}'s losses differ from rank 0's")
+        want = {k: 0 for k in res["counts"]}
+        want["head_loss_shard_fwd"] = want["head_loss_shard_bwd"] = cfg["steps"]
+        if res["counts"] != want:
+            raise AssertionError(f"parallel run, rank {res['rank']}: launches {res['counts']}, "
+                                 f"expected {want}")
+    print(f"parallel full-width run (DeepLabV3+ resnet34, decoder 256, C = {cfg['organs']}, "
+          f"{cfg['img']} px, global batch {cfg['batch']}, augment=True global CLAHE, bf16 "
+          f"autocast): losses {[round(x, 5) for x in losses]}", flush=True)
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"parallel run: loss not finite or not falling: {losses}")
+    if len({res["digest"] for res in results}) != 1:
+        raise AssertionError("parallel run: parameters or buffers differ between ranks")
+    print("parallel full-width run: parameters and BN buffers bitwise equal on every rank",
+          flush=True)
+    return results[0]["counts"]
+
+
 def main() -> int:
     try:
         import torch
@@ -811,12 +1174,16 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s wall", flush=True)
     # Phase 3: kernels against their plain versions.
     report = check_kernels(card)
+    report.update(check_shard_kernels(card))
     report.update(check_clahe(card))
     report.update(check_loss_sums(card))
     check_augment()
     check_small_step()
     # Phases 4 and 5: the main path, counted.
     counts = run_main_path(card)
+    torch.cuda.empty_cache()
+    # Phase 6: the parallel paths, counted on each rank.
+    counts.update({k: v for k, v in check_parallel(card).items() if k.startswith("head_loss_shard")})
     for name, entry in report.items():
         entry["launches"] = counts[name]
     print(json.dumps({"kernels": list(report.values())}))

@@ -43,6 +43,7 @@ from .losses import (  # noqa: E402
     seven_losses,
     seven_losses_composite_general,
     seven_losses_lowres,
+    seven_losses_lowres_spatial,
     union_loss,
 )
 from .models import build_model  # noqa: E402
@@ -63,5 +64,6 @@ __all__ = [
     "relative_ratios", "resolve_device", "return_union_sets_descending_order",
     "sequential_cross_organ_losses", "sequential_densenet_composite",
     "sequential_densenet_composite_deadbranch", "seven_from_sums", "seven_losses",
-    "seven_losses_composite_general", "seven_losses_lowres", "union_loss",
+    "seven_losses_composite_general", "seven_losses_lowres", "seven_losses_lowres_spatial",
+    "union_loss",
 ]

@@ -130,8 +130,35 @@ def seven_losses_lowres(logits_lr: torch.Tensor, g: torch.Tensor,
     from .ops.head_loss import fused_head_loss_sums
 
     # Labels are exactly {-1, 0, 1}, so bf16 halves the kernel's label bytes
-    # losslessly.
-    sums = fused_head_loss_sums(logits_lr, g.to(torch.bfloat16))
+    # losslessly.  (A float64 model's logits may come out of cuDNN in NCHW
+    # memory, which the NHWC kernel reads only after a copy.)
+    sums = fused_head_loss_sums(logits_lr.contiguous(), g.to(torch.bfloat16).contiguous())
+    return seven_from_sums(sums, 0.0).sum(-1)
+
+
+def seven_losses_lowres_spatial(logits_lr: torch.Tensor, g: torch.Tensor, mesh,
+                                background_weight: float | torch.Tensor = 0.0) -> torch.Tensor:
+    """:func:`seven_losses_lowres` of a batch split over ``mesh``'s ranks:
+    ``logits_lr`` (B_l, h_l, w, C) and ``g`` (B_l, H_l, W, C) are this
+    rank's row block.  The 1/4-resolution logits are gathered over the model
+    group (they are ~16x smaller than the labels; the JAX package replicates
+    them), the per-shard head-loss kernel sums this rank's label rows, and
+    one all-reduce over the world gives every rank the global (8, C) sums
+    (its backward passes the cotangent through: every rank computes this
+    same loss)."""
+    del background_weight  # dropped by the reference's multi-organ recursion
+    if g.shape[-1] <= 1:
+        raise ValueError("seven_losses_lowres is multi-organ only")
+    from .ops.head_loss import fused_head_loss_sums_shard
+    from .parallel.collectives import all_gather_rows, all_reduce_sum
+
+    x = logits_lr
+    if mesh.model > 1:
+        x = all_gather_rows(x, 1, mesh.model_group, mesh.model_index, mesh.model)
+    rows = g.shape[1]
+    part = fused_head_loss_sums_shard(x.contiguous(), g.to(torch.bfloat16).contiguous(),
+                                      rows * mesh.model, rows * mesh.model_index)
+    sums = all_reduce_sum(part, mesh.world, grad="identity")
     return seven_from_sums(sums, 0.0).sum(-1)
 
 

@@ -5,6 +5,16 @@ The model's public interface is NHWC, as the JAX module's: images
 (B, H, W, 3) in, float32 logits (B, H, W, C) out, or (B, H/4, W/4, C) with
 ``upsample_head=False`` for the fused head loss.  Inside, the tensors are
 NCHW views of ``channels_last`` memory.
+
+With a ``spatial`` partition whose rows are split (``--spatial_partition``)
+the model takes this rank's row block of the images and returns its row
+block of the one-rank model's logits.  The encoder runs on the block with
+halo exchanges; the 1/16 map is gathered over the row group before the
+ASPP, whose dilations (12, 24, 36) reach further than a block, and the ASPP
+and its output conv run on whole images, the same on every rank of the
+group; each rank keeps its rows of the x4 resize, and with
+``upsample_head`` gathers the 1/4-resolution head output to resize its
+rows.  BatchNorm statistics are global throughout.
 """
 
 from __future__ import annotations
@@ -13,13 +23,28 @@ import torch
 from torch import nn
 
 from ..ops.resize import resize_bilinear
+from ..parallel.collectives import all_gather_rows
 from .common import ConvBNAct, SeparableConvBNAct
 from .resnet import ResNetEncoder
 
 
-def _resize_nchw(x: torch.Tensor, out_hw, align_corners: bool) -> torch.Tensor:
-    y = resize_bilinear(x.permute(0, 2, 3, 1), tuple(out_hw), align_corners)
+def _resize_nchw(x: torch.Tensor, out_hw, align_corners: bool, rows=None) -> torch.Tensor:
+    y = resize_bilinear(x.permute(0, 2, 3, 1), tuple(out_hw), align_corners, rows)
     return y.permute(0, 3, 1, 2)
+
+
+def _gather_rows(x: torch.Tensor, spatial) -> torch.Tensor:
+    """The whole images of this rank's row block ``x`` (NCHW)."""
+    y = all_gather_rows(x, 2, spatial.row_group, spatial.row_index, spatial.row_count)
+    return y.contiguous(memory_format=torch.channels_last)
+
+
+def _resize_to_block(x: torch.Tensor, block_hw, spatial, align_corners: bool) -> torch.Tensor:
+    """This rank's row block, ``block_hw`` in size, of the resize of whole
+    images ``x`` (NCHW) to ``row_count`` such blocks stacked."""
+    rows = block_hw[0]
+    out_hw = (rows * spatial.row_count, block_hw[1])
+    return _resize_nchw(x, out_hw, align_corners, (spatial.row_index * rows, rows))
 
 
 def _dropout(x: torch.Tensor, p: float, training: bool,
@@ -47,12 +72,16 @@ class ASPP(nn.Module):
         self.pool_conv = ConvBNAct(in_features, features, 1)
         self.project = ConvBNAct(features * (2 + len(self.atrous_rates)), features, 1)
 
-    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
-        branches = [self.conv1x1(x)] + [getattr(self, n)(x) for n in self.atrous]
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None,
+                spatial=None) -> torch.Tensor:
+        """``x`` whole images: a ``spatial`` partition here only makes the
+        BatchNorm statistics global."""
+        branches = [self.conv1x1(x, spatial)] + [getattr(self, n)(x, spatial)
+                                                 for n in self.atrous]
         # Image-pooling branch: global average -> 1x1 conv/BN/ReLU -> broadcast.
-        pooled = self.pool_conv(x.mean(dim=(2, 3), keepdim=True))
+        pooled = self.pool_conv(x.mean(dim=(2, 3), keepdim=True), spatial)
         branches.append(pooled.expand_as(branches[0]))
-        y = self.project(torch.cat(branches, dim=1))
+        y = self.project(torch.cat(branches, dim=1), spatial)
         return _dropout(y, self.drop_rate, self.training, generator)
 
 
@@ -70,18 +99,31 @@ class DeepLabV3Plus(nn.Module):
         # smp 0.3.3's SegmentationHead: a 1x1 conv with bias
         self.head = nn.Conv2d(decoder_features, num_classes, 1, bias=True)
 
-    def forward(self, images: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+    def forward(self, images: torch.Tensor, generator: torch.Generator | None = None,
+                spatial=None) -> torch.Tensor:
         """``images`` NHWC -> NHWC float32 logits; ``generator`` draws the
-        ASPP dropout mask in training mode."""
+        ASPP dropout mask in training mode.  Under a ``spatial`` partition
+        (:class:`..parallel.Spatial`) ``images`` is this rank's part of the
+        batch; the ranks of its row group must draw the same dropout mask."""
         x = images.permute(0, 3, 1, 2)
-        feats = self.encoder(x)
+        feats = self.encoder(x, spatial)
         low, high = feats[1], feats[4]  # /4 and /16 (dilated)
-        y = self.aspp(high, generator)
-        y = self.aspp_out(y)
-        y = _resize_nchw(y, low.shape[2:], align_corners=True)
-        y = self.fuse((y, self.low_project(low)))
+        rows = spatial is not None and spatial.row_group is not None
+        whole = spatial.whole_rows() if rows else spatial
+        if rows:
+            high = _gather_rows(high, spatial)
+        y = self.aspp(high, generator, whole)
+        y = self.aspp_out(y, whole)
+        if rows:
+            y = _resize_to_block(y, low.shape[2:], spatial, align_corners=True)
+        else:
+            y = _resize_nchw(y, low.shape[2:], align_corners=True)
+        y = self.fuse((y, self.low_project(low, spatial)), spatial)
         y = self.head(y)
         if self.upsample_head:
-            y = _resize_nchw(y, x.shape[2:], align_corners=True)
+            if rows:
+                y = _resize_to_block(_gather_rows(y, spatial), x.shape[2:], spatial,
+                                     align_corners=True)
+            else:
+                y = _resize_nchw(y, x.shape[2:], align_corners=True)
         return y.permute(0, 2, 3, 1).float()

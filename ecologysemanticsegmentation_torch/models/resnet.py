@@ -6,7 +6,8 @@ Submodules are named as the flax tree names them (``conv1``, ``bn1``,
 ``layer{s}_block{b}``, ``downsample_conv``/``downsample_bn``).
 The encoder is built at output stride 16, the DeepLabV3+ encoder: every 3x3
 conv of the last stage is dilated by 2 and keeps its stride at 1 (smp
-``make_dilated``).
+``make_dilated``).  With a ``spatial`` partition it runs on this rank's row
+block (:mod:`.common`); every feature map it returns is that rank's block.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import BatchNorm2d, max_pool_3x3_s2
+from .common import BatchNorm2d, conv_rows, max_pool_3x3_s2
 
 
 def _conv(cin: int, cout: int, k: int, stride: int = 1, dilation: int = 1) -> nn.Conv2d:
@@ -34,10 +35,11 @@ class BasicBlock(nn.Module):
             self.downsample_conv = _conv(in_features, features, 1, stride)
             self.downsample_bn = BatchNorm2d(features)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
-        identity = self.downsample_bn(self.downsample_conv(x)) if self.has_downsample else x
+    def forward(self, x: torch.Tensor, spatial=None) -> torch.Tensor:
+        y = F.relu(self.bn1(conv_rows(self.conv1, x, spatial), spatial))
+        y = self.bn2(conv_rows(self.conv2, y, spatial), spatial)
+        identity = (self.downsample_bn(self.downsample_conv(x), spatial) if self.has_downsample
+                    else x)
         return F.relu(y + identity)
 
 
@@ -62,12 +64,12 @@ class ResNetEncoder(nn.Module):
                 cin = width
             self.stages.append(names)
 
-    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
-        x = F.relu(self.bn1(self.conv1(x)))
+    def forward(self, x: torch.Tensor, spatial=None) -> list[torch.Tensor]:
+        x = F.relu(self.bn1(conv_rows(self.conv1, x, spatial), spatial))
         features = [x]  # /2
-        x = max_pool_3x3_s2(x)
+        x = max_pool_3x3_s2(x, spatial)
         for names in self.stages:
             for name in names:
-                x = getattr(self, name)(x)
+                x = getattr(self, name)(x, spatial)
             features.append(x)
         return features

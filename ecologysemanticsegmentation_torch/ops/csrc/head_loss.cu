@@ -4,9 +4,14 @@
 //
 // Replaces the TPU kernel pair of
 // ecologysemanticsegmentation_tpu/ops/pallas/head_loss.py::_make_fused
-// (_fwd_kernel and _bwd_kernel), and the row-blocked variant
-// _make_fused_rows, which the JAX package selects at 512 px and above: one
-// kernel here covers any h -> H, both align_corners modes and 1 <= C <= 16.
+// (_fwd_kernel and _bwd_kernel), the row-blocked variant _make_fused_rows,
+// which the JAX package selects at 512 px and above, and the per-shard
+// _make_fused_spatial of --spatial_partition training: one kernel here
+// covers any h -> H, both align_corners modes and 1 <= C <= 16, and a row
+// block of the output.  The row taps come from tables: given the taps of
+// output rows [row0, row0 + H_l) and the backward's row runs built for that
+// block, the kernels compute the block's partial sums and a gradient for all
+// h rows, exactly 0 on the rows the block's taps never read.
 //
 // What bounds it on this card: bytes.  The forward reads the (B, H, W, C)
 // bf16 labels once (50.3 MB at batch 128, 256 px, C = 3) and the f32 logits

@@ -10,15 +10,24 @@ the hand-written kernels of ``csrc/loss_sums.cu`` (forward sums; backward
 one elementwise pass writing dp and dg), which read NHWC in place.  On CPU
 tensors they run the plain versions kept here, :func:`_sums_reference` and
 :func:`loss_sums_bwd_reference`.  Any other device raises.
+
+:func:`loss_sums_nhwc_spatial` is the row- and batch-partitioned form (the
+JAX package's ``shard_map`` over ``loss_sums_nhwc``): each rank reduces its
+own block with the same kernel, and one all-reduce over the world gives
+every rank the global sums.  Inside :func:`spatial_mesh_context` every
+:func:`loss_sums_nhwc` call takes that form, so the full-resolution losses
+partition without a mesh argument of their own.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
 
 from . import _build
+from ..parallel.collectives import all_reduce_sum
 
 EPS = 1e-7
 GAMMA = 1.5
@@ -205,10 +214,46 @@ def fused_loss_sums(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return _LossSums.apply(p.T, g.T)
 
 
+#: stack for :func:`spatial_mesh_context`; a ``None`` entry suppresses the
+#: redirection inside a shard's own reduction (reentrancy guard)
+_SPATIAL_STACK: list = []
+
+
+@contextlib.contextmanager
+def spatial_mesh_context(mesh):
+    """Every :func:`loss_sums_nhwc` call inside the context reduces this
+    rank's block and all-reduces over ``mesh`` (:func:`loss_sums_nhwc_spatial`).
+    The train step enters it around the full-resolution losses when it runs
+    on a mesh."""
+    _SPATIAL_STACK.append(mesh)
+    try:
+        yield
+    finally:
+        _SPATIAL_STACK.pop()
+
+
+def loss_sums_nhwc_spatial(probs: torch.Tensor, labels: torch.Tensor, mesh) -> torch.Tensor:
+    """:func:`loss_sums_nhwc` of a batch split over ``mesh``'s ranks (batch
+    over ``data``, rows over ``model``): ``probs``/``labels`` are this rank's
+    block; its (8, C) sums (the kernel on a CUDA tensor), summed over the
+    world, are the global sums on every rank, exact because each row is a
+    plain sum and the count row adds.  The all-reduce passes the cotangent
+    through unchanged: every rank computes the same loss from these sums."""
+    _SPATIAL_STACK.append(None)  # the shard's own reduction must not re-enter
+    try:
+        part = loss_sums_nhwc(probs, labels)
+    finally:
+        _SPATIAL_STACK.pop()
+    return all_reduce_sum(part, mesh.world, grad="identity")
+
+
 def loss_sums_nhwc(probs: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """NHWC (any leading axes, channels last) f32 probabilities and labels ->
     (8, C) sums, differentiable in both.  The kernel reads the tensors in
-    place, a channel slice of a wider tensor too."""
+    place, a channel slice of a wider tensor too.  Inside
+    :func:`spatial_mesh_context`, the sums over every rank's block."""
+    if _SPATIAL_STACK and _SPATIAL_STACK[-1] is not None:
+        return loss_sums_nhwc_spatial(probs, labels, _SPATIAL_STACK[-1])
     if probs.shape != labels.shape or probs.dim() < 1:
         raise ValueError(f"probs and labels must have one shape, got {tuple(probs.shape)} "
                          f"and {tuple(labels.shape)}")

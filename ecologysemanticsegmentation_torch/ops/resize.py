@@ -58,19 +58,24 @@ def interp_matrix(out_size: int, in_size: int, align_corners: bool,
 
 
 def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int],
-                    align_corners: bool = False) -> torch.Tensor:
+                    align_corners: bool = False, rows: tuple[int, int] | None = None
+                    ) -> torch.Tensor:
     """Bilinear-resize NHWC ``x`` to spatial size ``out_hw``.
 
     ``Mh @ x @ Mw`` in float32, or float64 for a float64 ``x`` (rows first,
     then columns, as the JAX einsum form), cast back to the input dtype.
     Autocast is off inside, so a bf16 activation is resampled in f32 as the
-    JAX path's f32 accumulation is."""
+    JAX path's f32 accumulation is.  ``rows = (row0, n)`` computes only
+    output rows ``[row0, row0 + n)`` (a row block of ``Mh``), from all of
+    ``x``'s rows: a rank's block of a row-partitioned resize."""
     n, h, w, c = x.shape
     oh, ow = int(out_hw[0]), int(out_hw[1])
+    row0, nrows = (0, oh) if rows is None else (int(rows[0]), int(rows[1]))
     if (oh, ow) == (h, w):
-        return x
+        return x[:, row0:row0 + nrows]
     dt = torch.promote_types(x.dtype, torch.float32)
-    mh = interp_matrix(oh, h, align_corners, x.device).to(dt)
+    mh = interp_matrix(oh, h, align_corners, x.device)[row0:row0 + nrows].to(dt)
+    oh = nrows
     mw = interp_matrix(ow, w, align_corners, x.device).to(dt)
     with torch.autocast(x.device.type, enabled=False):
         y = torch.matmul(mh, x.contiguous().to(dt).reshape(n, h, w * c))  # (n, oh, w*c)

@@ -1,4 +1,5 @@
 from .trainer import (
+    MultiSteps,
     TrainState,
     create_train_state,
     init_weights,
@@ -9,6 +10,6 @@ from .trainer import (
 )
 
 __all__ = [
-    "TrainState", "create_train_state", "init_weights", "make_eval_step",
+    "MultiSteps", "TrainState", "create_train_state", "init_weights", "make_eval_step",
     "make_forward", "make_optimizer", "make_train_step",
 ]

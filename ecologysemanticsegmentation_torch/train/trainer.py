@@ -7,6 +7,10 @@ DeepLabV3+ with ``upsample_head=False``) or the full-resolution losses
 On a CUDA device the model runs under bf16 autocast with float32 parameters
 (the JAX package's bf16-compute/f32-params); on the CPU it runs in float32,
 which is how the tests hold it against the JAX package's float32 model.
+
+On a ``(data, model)`` mesh (:mod:`..parallel`) the same step runs on every
+rank, each on its block of the batch: data parallelism, and with a model
+axis above 1 the row-partitioned (``--spatial_partition``) step.
 """
 
 from __future__ import annotations
@@ -29,8 +33,12 @@ from ..losses import (
     seven_losses,
     seven_losses_composite_general,
     seven_losses_lowres,
+    seven_losses_lowres_spatial,
 )
 from ..models.common import BatchNorm2d
+from ..ops.loss_sums import spatial_mesh_context
+from ..parallel.collectives import all_reduce_grads
+from ..parallel.mesh import batch_block, row_block
 
 
 @dataclasses.dataclass
@@ -40,13 +48,66 @@ class TrainState:
 
     step: int
     model: nn.Module
-    optimizer: torch.optim.Optimizer
+    optimizer: torch.optim.Optimizer | MultiSteps
 
 
-def make_optimizer(lr: float = 3e-4) -> Callable[..., torch.optim.Optimizer]:
+class MultiSteps:
+    """``optax.MultiSteps`` over a torch optimizer: each :meth:`step` folds
+    the parameters' ``.grad`` into a running mean (optax's Welford form,
+    ``acc + (g - acc) / (n + 1)``); the ``every_k``-th step hands the mean
+    to the inner optimizer, which updates the parameters and advances its
+    step count, and starts a new mean.  In between the parameters do not
+    move.  ``param_groups`` and ``state`` are the inner optimizer's, so the
+    train step sets the learning rate as it does on Adam."""
+
+    def __init__(self, inner: torch.optim.Optimizer, every_k: int):
+        if every_k < 1:
+            raise ValueError(f"every_k must be >= 1, got {every_k}")
+        self.inner, self.every_k, self.mini_step = inner, int(every_k), 0
+        self._params = [p for group in inner.param_groups for p in group["params"]]
+        self._acc = [torch.zeros_like(p) for p in self._params]
+
+    @property
+    def param_groups(self):
+        return self.inner.param_groups
+
+    @property
+    def state(self):
+        return self.inner.state
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        self.inner.zero_grad(set_to_none=set_to_none)
+
+    @torch.no_grad()
+    def step(self) -> None:
+        n = self.mini_step
+        for p, acc in zip(self._params, self._acc):
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            acc.add_((g - acc) / (n + 1))
+        self.mini_step += 1
+        if self.mini_step < self.every_k:
+            return
+        for p, acc in zip(self._params, self._acc):
+            p.grad = acc.clone()
+            acc.zero_()
+        self.mini_step = 0
+        self.inner.step()
+
+
+def make_optimizer(lr: float = 3e-4, grad_accum: int = 1
+                   ) -> Callable[..., torch.optim.Optimizer | MultiSteps]:
     """Adam with optax's defaults (b1 0.9, b2 0.999, eps 1e-8), as a factory
-    of parameters; the train step sets the learning rate on every call."""
-    return functools.partial(torch.optim.Adam, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    of parameters; the train step sets the learning rate on every call.
+
+    ``grad_accum=K`` wraps it in :class:`MultiSteps` (the JAX package's
+    ``optax.MultiSteps``): the mean of K micro-batch gradients feeds one
+    Adam update.  BatchNorm statistics update on every micro-step, and the
+    dice-family terms normalize over each micro-batch, as in the JAX
+    package."""
+    adam = functools.partial(torch.optim.Adam, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    if grad_accum == 1:
+        return adam
+    return lambda params: MultiSteps(adam(params), grad_accum)
 
 
 def _truncated_normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> None:
@@ -125,8 +186,26 @@ def make_train_step(model: nn.Module, tx, composite_mode: str = "none", augment:
     with ``upsample_head=False``): the fused low-resolution head loss,
     plain multi-organ losses only.  ``loss_formula`` ("multiclass" or
     "sequential") names the trainer whose gate sum is used; both sums are
-    the same.  ``k_steps``, ``scan_unroll`` and ``spatial_mesh`` are the
-    JAX signature's; only their defaults are ported.
+    the same.
+
+    ``spatial_mesh`` (a :class:`..parallel.Mesh`, this rank's place in a
+    ``(data, model)`` grid on the model's device): every rank calls the step
+    with the same global batch and keeps its block, the batch block of its
+    data index and the row block of its model index; the model runs on the
+    block (:mod:`..models.deeplabv3plus`), the loss's (8, C) sums are
+    all-reduced over the world before ``seven_from_sums``
+    (:func:`..losses.seven_losses_lowres_spatial`, or the full-resolution
+    losses inside :func:`..ops.loss_sums.spatial_mesh_context`), and the
+    parameter gradients are summed over the world after backward, so every
+    rank takes the one-rank step on the global batch.  A model axis of 1 is
+    plain data parallelism.  The ranks must start from the same weights
+    (:func:`..parallel.broadcast_state`), and the ranks of one data group
+    must draw the same random values (seed ``rng``'s device generator per
+    data group, its host generator the same on every rank): with
+    ``augment=True`` each rank augments its data group's whole images and
+    keeps its rows, and the gathered 1/16 stage draws one dropout mask.
+    ``k_steps`` and ``scan_unroll`` are the JAX signature's; only their
+    defaults are ported.
 
     ``state`` is updated in place and returned.  ``tx`` is consumed by
     :func:`create_train_state`, which puts the optimizer in the state."""
@@ -144,9 +223,14 @@ def make_train_step(model: nn.Module, tx, composite_mode: str = "none", augment:
         raise NotImplementedError("k_steps > 1 is the JAX package's scan of steps in one "
                                   "dispatch, which amortizes TPU dispatch and changes no "
                                   "result; it is not ported (ROADMAP, 'Not ported on purpose')")
-    if spatial_mesh is not None:
-        raise NotImplementedError("spatial_mesh (the --spatial_partition path) comes with the "
-                                  "parallel module (ROADMAP queue 1, item 15)")
+    mesh = spatial_mesh
+    if mesh is not None:
+        if not hasattr(mesh, "spatial"):
+            raise TypeError(f"spatial_mesh must be a parallel.Mesh, got {type(mesh).__name__}")
+        if mesh.device != next(model.parameters()).device:
+            raise ValueError(f"the mesh's rank runs on {mesh.device}, the model is on "
+                             f"{next(model.parameters()).device}")
+    spatial = mesh.spatial() if mesh is not None else None
     del tx, scan_unroll
 
     def seven_fn(probs, labels, bg_weight, jitters):
@@ -164,11 +248,15 @@ def make_train_step(model: nn.Module, tx, composite_mode: str = "none", augment:
         dev = param.device
         images = torch.as_tensor(batch["image"], device=dev)
         labels = torch.as_tensor(batch["label"], device=dev)
+        if mesh is not None:
+            images, labels = batch_block(images, mesh), batch_block(labels, mesh)
         if augment:
             if not (isinstance(rng, tuple) and len(rng) == 2):
                 raise TypeError("with augment=True, rng is the pair (host_gen, device_gen)")
             images, labels = augment_batch(rng, images, labels)
             rng = rng[1]
+        if mesh is not None:
+            images, labels = row_block(images, mesh), row_block(labels, mesh)
         labels = _prepare_labels(labels)
         # Images are rounded to bf16 before the model, as in the JAX step.
         images = images.to(torch.bfloat16).to(param.dtype)
@@ -176,16 +264,23 @@ def make_train_step(model: nn.Module, tx, composite_mode: str = "none", augment:
 
         model.train()
         with _autocast(dev):
-            out = model(images, generator=rng)
+            out = (model(images, generator=rng) if mesh is None
+                   else model(images, generator=rng, spatial=spatial))
         if lowres_head:
-            seven = seven_losses_lowres(out, labels)
-        else:
+            seven = (seven_losses_lowres(out, labels) if mesh is None
+                     else seven_losses_lowres_spatial(out, labels, mesh))
+        elif mesh is None:
             seven = seven_fn(torch.sigmoid(out.float()), labels, bg_weight, jitters)
+        else:
+            with spatial_mesh_context(mesh):
+                seven = seven_fn(torch.sigmoid(out.float()), labels, bg_weight, jitters)
         loss = gates[0] * seven[6] + gates[1] * seven[1] + gates[2] * (seven[4] + seven[5])
 
         opt = state.optimizer
         opt.zero_grad(set_to_none=True)
         loss.backward()
+        if mesh is not None:
+            all_reduce_grads(model.parameters(), mesh.world)
         for group in opt.param_groups:
             group["lr"] = float(lr)
         opt.step()

@@ -4,8 +4,9 @@
 * Entry points run on CUDA by default and raise without a card unless the
   caller passes ``device="cpu"``.
 * The head-loss wrapper rejects what its kernel does not take.
-* ``-m gpu`` (on the H100): the CUDA kernels (head loss, loss sums,
-  tiled-CLAHE apply) build and agree with their plain versions.  Here,
+* ``-m gpu`` (on the H100): the CUDA kernels (head loss, its per-shard
+  form, loss sums, tiled-CLAHE apply) build and agree with their plain
+  versions.  Here,
   without a card, those tests skip.
 """
 
@@ -67,17 +68,18 @@ def test_build_model_names():
 
 
 def test_train_step_scope():
-    """Augmentation and the full-resolution loss path are ported; deep
-    supervision (VGG), the multi-step scan and the spatial mesh are not."""
+    """Augmentation, the full-resolution loss path and the spatial mesh are
+    ported; deep supervision (VGG) and the multi-step scan are not."""
     model = est.build_model(num_classes=3, device="cpu")
     tx = est.make_optimizer()
     assert callable(est.make_train_step(model, tx, augment=True, lowres_head=True))
     for mode in ("none", "sequential", "general"):
         assert callable(est.make_train_step(model, tx, composite_mode=mode, lowres_head=False))
-    for kwargs, item in [({"deepsupervision": True}, "item 12"), ({"k_steps": 2}, "on purpose"),
-                         ({"spatial_mesh": object()}, "item 15")]:
+    for kwargs, item in [({"deepsupervision": True}, "item 12"), ({"k_steps": 2}, "on purpose")]:
         with pytest.raises(NotImplementedError, match=item):
             est.make_train_step(model, tx, **kwargs)
+    with pytest.raises(TypeError, match="parallel.Mesh"):
+        est.make_train_step(model, tx, spatial_mesh=object())
     with pytest.raises(ValueError, match="lowres_head"):
         est.make_train_step(model, tx, composite_mode="sequential", lowres_head=True)
     with pytest.raises(ValueError, match="composite_mode"):
@@ -137,6 +139,43 @@ def test_cuda_kernels_match_plain(cuda, b, h, scale, c, align_corners):
     torch.testing.assert_close(sums, ref, rtol=1e-4, atol=1e-3)
     assert torch.equal(sums[7], (labels >= 0).sum((0, 1, 2)).float())
     torch.testing.assert_close(x.grad, dref, rtol=0, atol=1e-4 * dref.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,c", [(2, 3), (4, 3), (2, 1), (4, 11)])
+def test_cuda_shard_kernels_match_plain(cuda, n, c):
+    """Every row block of an n-way split (64 -> 256 rows, 4 images): the
+    block's sums at rtol 1e-4 with the count row exact, its dlogits element
+    by element at rtol 1e-4 / atol 1e-5 of max |dlogits| against the plain
+    version; the blocks' sums and dlogits added together equal the
+    unsharded kernel's at the same bounds."""
+    rs = np.random.RandomState(n * 16 + c)
+    logits = torch.tensor(rs.randn(4, 64, 64, c), dtype=torch.float32, device=cuda)
+    labels = (rs.rand(4, 256, 256, c) > 0.5).astype(np.float32)
+    labels[rs.rand(*labels.shape) < 0.05] = -1.0
+    labels = torch.tensor(labels, device=cuda).to(torch.bfloat16)
+    cot = torch.tensor(rs.randn(8, c), dtype=torch.float32, device=cuda)
+    rows = 256 // n
+    total, dtotal = 0.0, 0.0
+    for k in range(n):
+        block = labels[:, k * rows:(k + 1) * rows].contiguous()
+        before = dict(hl.launches)
+        x = logits.clone().requires_grad_()
+        sums = hl.fused_head_loss_sums_shard(x, block, 256, k * rows)
+        (sums * cot).sum().backward()
+        torch.cuda.synchronize()
+        assert hl.launches["head_loss_shard_fwd"] == before["head_loss_shard_fwd"] + 1
+        assert hl.launches["head_loss_shard_bwd"] == before["head_loss_shard_bwd"] + 1
+        ref = hl.head_sums_shard_reference(logits, block, 256, k * rows)
+        dref = hl.head_sums_shard_bwd_reference(logits, block, cot, 256, k * rows)
+        torch.testing.assert_close(sums, ref, rtol=1e-4, atol=1e-3)
+        assert torch.equal(sums[7], (block >= 0).sum((0, 1, 2)).float())
+        torch.testing.assert_close(x.grad, dref, rtol=1e-4, atol=1e-5 * dref.abs().max().item())
+        total, dtotal = total + sums.detach(), dtotal + x.grad
+    full = hl.head_sums_cuda(logits, labels)
+    dfull = hl.head_sums_bwd_cuda(logits, labels, cot)
+    torch.testing.assert_close(total, full, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(dtotal, dfull, rtol=1e-4, atol=1e-5 * dfull.abs().max().item())
 
 
 @pytest.mark.gpu
