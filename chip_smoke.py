@@ -18,7 +18,8 @@ exit code before the result line is printed):
    block's tap tables, at the 512 px spatial step's shard shapes for every
    block of a 2- and 4-way split at C = 3, 1 and 11, dlogits element by
    element, and the blocks added together against the unsharded kernel;
-   the loss sums at the sequential step's C = 3 and C = 1 calls,
+   the loss sums at the sequential step's C = 3 and C = 1 calls and at
+   the spatial sequential step's per-shard call,
    their gradients element by element, and the single-organ call with
    ``-1`` labels in the prediction slot, NaN where the plain version is);
    device augmentation on the card against the same draws on the CPU, in
@@ -47,7 +48,9 @@ exit code before the result line is printed):
    Small float64 steps (64 px, batch 4, decoder 32, dropout 0), each
    against the one-rank step on the card from the same weights and batch:
    the spatial flagship and sequential steps on a (2, 2) grid and the
-   data-parallel flagship step on (4, 1).  (b) The spatial flagship at full
+   data-parallel flagship step on (4, 1), each counted on every rank (the
+   flagship 1 + 1 per-shard head-loss launches, the sequential step 2 + 2
+   loss-sums launches, no other kernel's).  (b) The spatial flagship at full
    width: (2, 2) grid, 512 px, global batch 16, augmentation with the
    global CLAHE, bf16 autocast, 13 steps, counters zeroed just before and
    read just after on every rank (13 + 13 per-shard head-loss launches, no
@@ -135,7 +138,8 @@ CLAHE_ATOL = 1e-5   # f32 sums of <= K + 2 terms of magnitude <= 1, in another o
 # the single-organ step's call as it is made (swapped: {-1, 0, 1} labels in
 # the p slot, probabilities in the g slot, so a -1 label makes rows 4-5 and
 # dp NaN, in the plain version as in the JAX package), C = 11, a ragged
-# tail, and 1024 px.
+# tail, 1024 px, and the spatial sequential step's per-shard call (512 px,
+# batch 8, the first of 2 row blocks; timed in check_shard_kernels).
 LOSS_SUMS_SHAPES = [
     (128, 256, 256, 3, False),
     (128, 256, 256, 1, False),
@@ -143,6 +147,7 @@ LOSS_SUMS_SHAPES = [
     (32, 256, 256, 11, False),
     (3, 97, 101, 3, False),
     (8, 1024, 1024, 3, False),
+    (8, 256, 512, 3, False),
 ]
 # Augmentation on the card against the CPU (bf16): every value within 2 bf16
 # ulps, except on at most 1% of the pixels (a rounding difference moved the
@@ -286,7 +291,7 @@ def check_shard_kernels(card: str) -> dict:
     block's tap tables) against its plain version on every row block of
     n = 2 and n = 4; the blocks' sums and dlogits added together against
     the unsharded kernel's.  Time, plain time and bound at the main path's
-    block (C = 3, n = 2, first block); also the loss-sums kernel's time at
+    block (C = 3, n = 2, first block); also the loss-sums kernels' times at
     that block's full-resolution shape, the per-shard call of the
     sequential spatial step (PERF.md row 8)."""
     import torch
@@ -344,12 +349,18 @@ def check_shard_kernels(card: str) -> dict:
             bwd_plain = _time_ms(
                 lambda: hl.head_sums_shard_bwd_reference(logits, block, cot, H, 0), iters=5)
             elems = B * rows * W * C
-            in_bytes = block.numel() * 2 + logits.numel() * 4
+            # bytes: the label block and the logit rows its row taps reach
+            # (not all h), read once; the sums or cotangent; in the backward
+            # the whole dlogits written (rows no tap reaches are zeros)
+            y_idx = hl._tables(H, h, True, logits.device, 0, rows)[0]
+            tap_rows = int(y_idx.max().item()) - int(y_idx.min().item()) + 1
+            in_bytes = block.numel() * 2 + B * tap_rows * w * C * 4
             fb, fby = _bound(in_bytes + 8 * C * 4, elems * FWD_OPS_PER_ELEM)
             bb, bby = _bound(in_bytes + 8 * C * 4 + logits.numel() * 4, elems * BWD_OPS_PER_ELEM)
             print(f"kernel times head_loss_shard at {(B, h, w, rows, W, C)} of H={H} [{card}]: "
                   f"fwd {fwd_ms:.4f} ms (plain {fwd_plain:.4f}, bound {fb:.4f} by {fby}), bwd "
-                  f"{bwd_ms:.4f} ms (plain {bwd_plain:.4f}, bound {bb:.4f} by {bby})", flush=True)
+                  f"{bwd_ms:.4f} ms (plain {bwd_plain:.4f}, bound {bb:.4f} by {bby}); bounds "
+                  f"count {tap_rows} of {h} logit rows read", flush=True)
             src = "ecologysemanticsegmentation_torch/ops/csrc/head_loss.cu"
             tpu = "ecologysemanticsegmentation_tpu/ops/pallas/head_loss.py"
             report["head_loss_shard_fwd"] = dict(
@@ -360,7 +371,8 @@ def check_shard_kernels(card: str) -> dict:
                 name="head_loss_shard_bwd", route="cuda", source=src, replaces=f"{tpu}:382",
                 max_abs_err=dworst, ms=bwd_ms, plain_ms=bwd_plain, bound_ms=bb, bound_by=bby,
                 library_ms=None)
-            # Row 8: the loss-sums kernel on one shard's full-resolution block.
+            # Row 8: the loss-sums kernels on one shard's full-resolution
+            # block (held against their plain versions in check_loss_sums).
             probs = torch.rand((B, rows, W, C), generator=gen, device="cuda").reshape(-1, C)
             g2 = block.float().reshape(-1, C)
             lf = _time_ms(lambda: ls.loss_sums_cuda(probs, g2))
@@ -1045,7 +1057,8 @@ def check_parallel(card: str) -> dict:
     ``PAR_TIMEOUT_S``, fails the run.  Checks (a) every small step against
     the one-rank step (loss within 1e-5 relative, gradients within 1e-5 of
     each tensor's scale, parameters within 2 lr, BN statistics 1e-12,
-    parameters and buffers bitwise equal on every rank) and (b) the
+    parameters and buffers bitwise equal on every rank, each rank's launches
+    those of one step of its path) and (b) the
     full-width run (finite, falling loss equal on every rank; parameters and
     buffers bitwise equal on every rank; 13 + 13 per-shard head-loss
     launches on each rank and no other kernel's).  Returns rank 0's counts
@@ -1100,6 +1113,17 @@ def check_parallel(card: str) -> dict:
         if len(digests) != 1:
             raise AssertionError(f"parallel small step ({kind}, grid {data} x {model}): "
                                  f"parameters or buffers differ between ranks")
+        # one step: the flagship launches the per-shard head loss once each
+        # way, the sequential step the loss sums twice; nothing else
+        want = {k: 0 for k in results[0]["small"][key]["counts"]}
+        names = (("head_loss_shard_fwd", "head_loss_shard_bwd", 1) if kind == "flagship"
+                 else ("loss_sums_fwd", "loss_sums_bwd", LOSS_SUMS_CALLS[kind]))
+        want[names[0]] = want[names[1]] = names[2]
+        for res in results:
+            if res["small"][key]["counts"] != want:
+                raise AssertionError(f"parallel small step ({kind}, grid {data} x {model}), rank "
+                                     f"{res['rank']}: launches {res['small'][key]['counts']}, "
+                                     f"expected {want}")
         r = results[0]["small"][key]
         print(f"parallel small step ({kind}, float64, grid {data} x {model}) = one-rank step: "
               f"loss {r['loss']:.9f} vs {r['want_loss']:.9f}, gradients {r['grads']:.3g} of "

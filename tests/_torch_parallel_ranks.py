@@ -67,21 +67,21 @@ def build_model(upsample_head: bool) -> DeepLabV3Plus:
     return copy.deepcopy(_initial_model(upsample_head))
 
 
-def images(img: int = IMG) -> torch.Tensor:
+def images() -> torch.Tensor:
     """Images of unlike brightness (a 1x1 BatchNorm over equal-mean images
     sits at var ~ 0, where its gradient is rounding noise)."""
     g = torch.Generator().manual_seed(3)
-    return (torch.rand((BATCH, img, img, 3), generator=g, dtype=torch.float64) * 0.5
+    return (torch.rand((BATCH, IMG, IMG, 3), generator=g, dtype=torch.float64) * 0.5
             + torch.linspace(0.0, 0.5, BATCH, dtype=torch.float64)[:, None, None, None])
 
 
-def batch(img: int = IMG) -> dict:
+def batch() -> dict:
     """The step's batch: labels in {0, 1, 2} (a 2 that label prep
     binarizes) with 5% -1 ignores."""
     g = torch.Generator().manual_seed(4)
-    label = torch.randint(0, 3, (BATCH, img, img, ORGANS), generator=g).float()
+    label = torch.randint(0, 3, (BATCH, IMG, IMG, ORGANS), generator=g).float()
     label[torch.rand(label.shape, generator=g) < 0.05] = -1.0
-    return {"image": images(img).float(), "label": label}
+    return {"image": images().float(), "label": label}
 
 
 def output_weights(shape) -> torch.Tensor:
@@ -118,20 +118,21 @@ def model_run(model, imgs, spatial=None, mesh=None) -> dict:
             "buffers": dict(model.named_buffers())}
 
 
-def step_run(kind: str, mesh=None, img: int = IMG) -> dict:
+def step_run(kind: str, mesh=None) -> dict:
     """One unaugmented step ("flagship": low-resolution head loss;
     "sequential": full resolution, ``composite_mode="sequential"``) from
-    the fixed weights and batch: metrics, the gradients Adam received, the
-    parameters and BN buffers after."""
+    the fixed weights and batch: metrics, the gradients Adam received,
+    Adam's first moment, the parameters and BN buffers after."""
     lowres = kind == "flagship"
     model = build_model(upsample_head=not lowres)
     tx = make_optimizer(LR)
     state = TrainState(step=0, model=model, optimizer=tx(model.parameters()))
     step = make_train_step(model, tx, composite_mode="none" if lowres else "sequential",
                            augment=False, lowres_head=lowres, spatial_mesh=mesh)
-    state, met = step(state, batch(img), torch.Generator().manual_seed(1), 0.0, GATES, LR, None)
+    state, met = step(state, batch(), torch.Generator().manual_seed(1), 0.0, GATES, LR, None)
     return {"metrics": {k: float(v) for k, v in met.items()},
             "grads": {n: p.grad for n, p in model.named_parameters()},
+            "mu": {n: state.optimizer.state[p]["exp_avg"] for n, p in model.named_parameters()},
             "params": {n: p.detach() for n, p in model.named_parameters()},
             "buffers": dict(model.named_buffers())}
 
@@ -300,20 +301,18 @@ def job_parallel(rank: int) -> dict:
     return results
 
 
-# tests/test_torch_parallel_jax.py's image: the smallest whose 1/16 map
-# splits over two row blocks, to keep the JAX step's CPU run short
-JAX_IMG = 32
-
-
 def job_flagship_2x2(rank: int) -> dict:
     """tests/test_torch_parallel_jax.py: the flagship step on the (2, 2)
-    grid at ``JAX_IMG``; rank 0 also returns its parameters (float32), the
-    others their digest."""
-    got = step_run("flagship", create_mesh(2, device="cpu"), JAX_IMG)
+    grid; rank 0 also returns its parameters and Adam's first
+    moment (float32: the weights are large) and its BN buffers (float64),
+    the others their digests."""
+    got = step_run("flagship", create_mesh(2, device="cpu"))
     out = {"metrics": got["metrics"], "params_digest": digest(got["params"]),
            "buffers_digest": digest(got["buffers"])}
     if rank == 0:
         out["params"] = {k: v.float().numpy() for k, v in got["params"].items()}
+        out["mu"] = {k: v.float().numpy() for k, v in got["mu"].items()}
+        out["buffers"] = {k: v.numpy() for k, v in got["buffers"].items()}
     return out
 
 
