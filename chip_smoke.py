@@ -2,7 +2,7 @@
 """Drive the PyTorch port's main path once on one NVIDIA H100 and check it.
 
     python3 chip_smoke.py            # from the root of a checkout
-    python3 chip_smoke.py --mutants  # only: the loss-sums check against broken kernels
+    python3 chip_smoke.py --mutants  # only: the gradient checks against broken kernels
 
 Phases, each fatal on failure (an exception ends the run with a non-zero
 exit code before the result line is printed):
@@ -10,14 +10,19 @@ exit code before the result line is printed):
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build: the three CUDA kernel sources from
    ``ecologysemanticsegmentation_torch/ops/csrc`` with nvcc, one process per
-   source, all started together;
+   source, all started together; each kernel's registers and spills (the
+   head-loss kernels must not spill at C = 3);
 3. kernels: every kernel against its plain PyTorch version on the card at the
    main paths' shapes and at the other shapes it serves, with its time, the
    plain version's time and its bound (the head loss also at 512, 768 and
-   1024 px; its per-shard form, the head-loss kernels launched with a row
-   block's tap tables, at the 512 px spatial step's shard shapes for every
-   block of a 2- and 4-way split at C = 3, 1 and 11, dlogits element by
-   element, and the blocks added together against the unsharded kernel;
+   1024 px, a ragged row, C = 16, rows split into column bands and a
+   downsample, its dlogits element by element against
+   the plain version in float64, each kernel launched twice and bitwise
+   equal, and a cold time beside the warm one at the main shape; its
+   per-shard form, the head-loss kernels launched with a row block's
+   tables, at the 512 px spatial step's shard shapes for every block of a
+   2- and 4-way split at C = 3, 1 and 11, dlogits element by element, and
+   the blocks added together against the unsharded kernel;
    the loss sums at the sequential step's C = 3 and C = 1 calls and at
    the spatial sequential step's per-shard call,
    their gradients element by element, and the single-organ call with
@@ -68,9 +73,11 @@ Without a CUDA device, or without the rest of the repository beside it, the
 script exits non-zero and prints no result.
 
 ``--mutants`` builds copies of ``csrc/loss_sums.cu`` with one term of the
-backward broken each (under the gitignored ``ops/build/mutants/``) and
-shows that phase 3's gradient check refuses every one and passes the
-kernel as written; it prints the looser max-scaled check's verdict beside.
+backward broken each, and of ``csrc/head_loss.cu`` with a band edge or a
+column tap of the backward broken (under the gitignored
+``ops/build/mutants/``), and shows that phase 3's element-wise gradient
+checks refuse every one and pass the kernels as written; it prints the
+looser max-scaled check's verdict beside.
 """
 
 from __future__ import annotations
@@ -119,6 +126,10 @@ SHAPES = [
     (32, 128, 128, 512, 512, 3, True),
     (16, 192, 192, 768, 768, 3, True),
     (8, 256, 256, 1024, 1024, 3, True),
+    (2, 25, 26, 97, 101, 3, False),   # a row of 303 bf16: labels loaded without the bulk copy
+    (4, 64, 64, 256, 256, 16, True),
+    (1, 8, 750, 32, 3000, 16, True),   # rows too wide for shared memory: column bands
+    (2, 40, 48, 16, 20, 3, False),     # a downsample
 ]
 # Shapes whose times are printed: the main path's, and the sizes at which
 # the JAX package selects its row-blocked kernels (head_loss.py:272, :298),
@@ -154,7 +165,7 @@ LOSS_SUMS_SHAPES = [
 # pixel across a CLAHE bin or a hue sector), which stay within 1/16.
 AUG_ULPS, AUG_FLIP_FRAC, AUG_FLIP_MAX = 2, 0.01, 1 / 16
 SUM_RTOL = 1e-4     # 8.4 M-term f32 sums, summed in another order
-GRAD_RTOL = 1e-4    # of max |dlogits|: transcendentals and projections reordered
+GRAD_RTOL = 1e-4    # of the largest gradient: the max-scaled check --mutants prints beside
 # Loss-sums gradients, element by element: |got - want| <= atol + rtol |want|.
 # Both sides take the same f32 operations on each element; the kernel
 # contracts products into FMAs, a few ulps, and where the row terms cancel
@@ -170,21 +181,30 @@ def _card() -> str:
 
 
 def _ptxas_usage(log: str) -> list[tuple[str, str]]:
-    """(kernel, "Used N registers, ... smem") pairs from nvcc's -Xptxas -v log,
-    the kernel named by its function and template argument."""
-    out, entry = [], None
+    """(kernel, "Used N registers, ... smem; S bytes spill stores, L bytes
+    spill loads") pairs from nvcc's -Xptxas -v log, the kernel named by its
+    function and template argument."""
+    out, entry, spill = [], None, ""
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            name = re.search(r"\d+(loss_sums_fwd_kernel|loss_sums_bwd_kernel|fwd_kernel|"
-                             r"bwd_rows_kernel|bwd_gather_kernel|clahe_apply_kernel)"
+            name = re.search(r"\d+(loss_sums_fwd_kernel|loss_sums_bwd_kernel|head_fwd_kernel|"
+                             r"head_bwd_kernel|clahe_apply_kernel)"
                              r"(?:ILi(\d+)E)?", m.group(1))
             entry = f"{name.group(1)}<{name.group(2)}>" if name and name.group(2) else (
                 name.group(1) if name else m.group(1))
+            spill = ""
+        elif entry and "spill stores" in line:
+            spill = "; " + ", ".join(part.strip() for part in line.split(",")[1:])
         elif entry and "Used" in line:
-            out.append((entry, "Used " + line.split("Used", 1)[1].strip()))
+            out.append((entry, "Used " + line.split("Used", 1)[1].strip() + spill))
             entry = None
     return out
+
+
+def _spills(usage: str) -> int:
+    """Bytes of spill stores and loads in a :func:`_ptxas_usage` entry."""
+    return sum(int(n) for n in re.findall(r"(\d+) bytes spill", usage))
 
 
 def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -218,8 +238,43 @@ def _bound(nbytes: float, ops: float) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def _time_cold_ms(fn, iters: int = 10) -> float:
+    """Mean time of ``fn`` over ``iters`` launches, each after a 256 MiB
+    write (more than the card's 50 MB L2) outside its timing events, so it
+    reads its inputs from device memory.  The write outlasts the host's
+    enqueueing of ``fn``, so the card does not wait for the host in between."""
+    import torch
+
+    flush = torch.empty(256 * 2**20 // 4, dtype=torch.float32, device="cuda")
+    fn()
+    events = []
+    for _ in range(iters):
+        flush.fill_(1.0)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / iters
+
+
+def _head_grad_ok(dx, dref64) -> tuple[bool, float]:
+    """dlogits element by element against the plain version in float64:
+    ``|got - want| <= SHARD_GRAD_RTOL |want| + SHARD_GRAD_ATOL max |want|``."""
+    return _close(dx.double(), dref64, SHARD_GRAD_RTOL,
+                  SHARD_GRAD_ATOL * dref64.abs().max().item())
+
+
 def check_kernels(card: str) -> dict:
-    """Phase 3: each kernel against its plain version at every shape."""
+    """Phase 3: the head-loss kernels against their plain versions at every
+    shape: the sums against the f32 plain version, the count row exactly,
+    dlogits element by element against the plain version in float64 (the
+    kernel forms 1 - p without cancellation; in f32 the plain version rounds
+    it away where p nears 1); each kernel launched twice on the same
+    inputs, bitwise equal.
+    Times at ``TIMED``, and a cold time beside the warm one at the main
+    shape."""
     import torch
 
     from ecologysemanticsegmentation_torch.ops import head_loss as hl
@@ -230,21 +285,24 @@ def check_kernels(card: str) -> dict:
         B, h, w, H, W, C, ac = shape
         logits, labels, cot = _head_inputs(shape, gen)
         sums = hl.head_sums_cuda(logits, labels, ac)
-        ref = hl.head_sums_reference(logits, labels, ac)
         dx = hl.head_sums_bwd_cuda(logits, labels, cot, ac)
-        dref = hl.head_sums_bwd_reference(logits, labels, cot, ac)
+        same = (torch.equal(hl.head_sums_cuda(logits, labels, ac), sums)
+                and torch.equal(hl.head_sums_bwd_cuda(logits, labels, cot, ac), dx))
+        ref = hl.head_sums_reference(logits, labels, ac)
+        dref = hl.head_sums_bwd_reference(logits.double(), labels, cot.double(), ac)
+        err32 = (dx - hl.head_sums_bwd_reference(logits, labels, cot, ac)).abs().max().item()
         torch.cuda.synchronize()
-        fwd_err = (sums - ref).abs().max().item()
-        bwd_err = (dx - dref).abs().max().item()
-        fwd_ok = bool(((sums - ref).abs() <= SUM_RTOL * ref.abs() + 1e-3).all())
-        bwd_ok = bwd_err <= GRAD_RTOL * dref.abs().max().item()
+        fwd_ok, fwd_err = _close(sums, ref, SUM_RTOL, 1e-3)
+        bwd_ok, bwd_err = _head_grad_ok(dx, dref)
         exact_count = bool((sums[7] == (labels >= 0).sum((0, 1, 2)).float()).all())
         print(f"kernel check {shape}: fwd max_abs_err {fwd_err:.6g} (max |sum| "
-              f"{ref.abs().max().item():.6g}), bwd max_abs_err {bwd_err:.6g} "
-              f"(max |dlogits| {dref.abs().max().item():.6g}), count row exact {exact_count}",
-              flush=True)
-        if not (fwd_ok and bwd_ok and exact_count and torch.isfinite(dx).all()):
+              f"{ref.abs().max().item():.6g}), bwd max_abs_err {bwd_err:.6g} against float64 "
+              f"(elementwise rtol {SHARD_GRAD_RTOL}, atol {SHARD_GRAD_ATOL} of max |dlogits| "
+              f"{dref.abs().max().item():.6g}; {err32:.6g} against the f32 plain version), "
+              f"count row exact {exact_count}, repeat launches bitwise equal {same}", flush=True)
+        if not (fwd_ok and bwd_ok and exact_count and same and torch.isfinite(dx).all()):
             raise AssertionError(f"head-loss kernel disagrees with its plain version at {shape}")
+        del dref
         if shape not in TIMED:
             continue
         elems = B * H * W * C
@@ -260,6 +318,11 @@ def check_kernels(card: str) -> dict:
               f"bound {bb:.4f} by {bby})", flush=True)
         if shape != SHAPES[0]:
             continue
+        fwd_cold = _time_cold_ms(lambda: hl.head_sums_cuda(logits, labels, ac))
+        bwd_cold = _time_cold_ms(lambda: hl.head_sums_bwd_cuda(logits, labels, cot, ac))
+        print(f"kernel cold times at {shape} [{card}] (L2 flushed by a 256 MiB write before "
+              f"each launch): fwd {fwd_cold:.4f} ms (warm {fwd_ms:.4f}), bwd {bwd_cold:.4f} ms "
+              f"(warm {bwd_ms:.4f})", flush=True)
         src = "ecologysemanticsegmentation_torch/ops/csrc/head_loss.cu"
         tpu = "ecologysemanticsegmentation_tpu/ops/pallas/head_loss.py"
         report["head_loss_fwd"] = dict(
@@ -279,18 +342,21 @@ def check_kernels(card: str) -> dict:
 SHARD_SHAPES = [(8, 128, 128, 512, 512, 3), (8, 128, 128, 512, 512, 1),
                 (8, 128, 128, 512, 512, 11)]
 SHARD_SPLITS = (2, 4)
-# dlogits element by element: |got - want| <= SHARD_GRAD_RTOL |want| +
+# dlogits element by element, unsharded and per shard, against the plain
+# version in float64: |got - want| <= SHARD_GRAD_RTOL |want| +
 # SHARD_GRAD_ATOL max |want|.  Each dlogit sums up to ~64 f32 terms of
-# bounded size (sigma' caps every dp term), so reordering them moves it by
+# bounded size (sigma' caps every dp term), so reordering them and the
+# kernel's approximate exp, log and reciprocal (~1e-7 relative) move it by
 # ~1e-6 of the largest |dlogit|; the relative part covers the rest.
 SHARD_GRAD_RTOL, SHARD_GRAD_ATOL = 1e-4, 1e-5
 
 
 def check_shard_kernels(card: str) -> dict:
     """Phase 3: the per-shard head loss (the kernels launched with a row
-    block's tap tables) against its plain version on every row block of
-    n = 2 and n = 4; the blocks' sums and dlogits added together against
-    the unsharded kernel's.  Time, plain time and bound at the main path's
+    block's tables) against its plain version on every row block of n = 2
+    and n = 4 (dlogits against it in float64), each block's kernels
+    launched twice and bitwise equal; the blocks' sums and dlogits added
+    together against the unsharded kernel's.  Time, plain time and bound at the main path's
     block (C = 3, n = 2, first block); also the loss-sums kernels' times at
     that block's full-resolution shape, the per-shard call of the
     sequential spatial step (PERF.md row 8)."""
@@ -313,17 +379,20 @@ def check_shard_kernels(card: str) -> dict:
                 sums = hl.head_sums_shard_cuda(logits, block, H, k * rows)
                 ref = hl.head_sums_shard_reference(logits, block, H, k * rows)
                 dx = hl.head_sums_shard_bwd_cuda(logits, block, cot, H, k * rows)
-                dref = hl.head_sums_shard_bwd_reference(logits, block, cot, H, k * rows)
+                dref = hl.head_sums_shard_bwd_reference(logits.double(), block, cot.double(), H,
+                                                        k * rows)
+                same = (torch.equal(hl.head_sums_shard_cuda(logits, block, H, k * rows), sums)
+                        and torch.equal(hl.head_sums_shard_bwd_cuda(logits, block, cot, H,
+                                                                    k * rows), dx))
                 torch.cuda.synchronize()
                 fwd_ok, fwd_err = _close(sums, ref, SUM_RTOL, 1e-3)
-                bwd_ok, bwd_err = _close(dx, dref, SHARD_GRAD_RTOL,
-                                         SHARD_GRAD_ATOL * dref.abs().max().item())
+                bwd_ok, bwd_err = _head_grad_ok(dx, dref)
                 exact = bool((sums[7] == (block >= 0).sum((0, 1, 2)).float()).all())
-                if not (fwd_ok and bwd_ok and exact and torch.isfinite(dx).all()):
+                if not (fwd_ok and bwd_ok and exact and same and torch.isfinite(dx).all()):
                     raise AssertionError(
                         f"per-shard head loss disagrees with its plain version at "
                         f"{(B, h, w, H, W, C)}, block {k} of {n}: sums err {fwd_err:.6g}, "
-                        f"dlogits err {bwd_err:.6g}, count exact {exact}")
+                        f"dlogits err {bwd_err:.6g}, count exact {exact}, repeat equal {same}")
                 worst, dworst = max(worst, fwd_err), max(dworst, bwd_err)
                 total, dtotal = total + sums, dtotal + dx
             sum_ok, sum_err = _close(total, full, SUM_RTOL, 1e-3)
@@ -332,7 +401,8 @@ def check_shard_kernels(card: str) -> dict:
             print(f"kernel check head_loss_shard {(B, h, w, H, W, C)} n={n}: sums max_abs_err "
                   f"{worst:.6g} (max |sum| {full.abs().max().item():.6g}), dlogits max_abs_err "
                   f"{dworst:.6g} (max |dlogits| {dfull.abs().max().item():.6g}; elementwise "
-                  f"rtol {SHARD_GRAD_RTOL}, atol {SHARD_GRAD_ATOL} of max), count rows exact; "
+                  f"rtol {SHARD_GRAD_RTOL}, atol {SHARD_GRAD_ATOL} of max, against float64), count "
+                  f"rows exact, repeat launches bitwise equal; "
                   f"blocks summed vs unsharded kernel: sums {sum_err:.6g}, dlogits "
                   f"{grad_err:.6g}", flush=True)
             if not (sum_ok and grad_ok and torch.equal(total[7], full[7])):
@@ -564,72 +634,142 @@ LOSS_SUMS_MUTANTS = [
 ]
 
 
-def check_mutants() -> None:
-    """Build every ``LOSS_SUMS_MUTANTS`` copy of the kernel source (one nvcc
-    each, all together) and run phase 3's gradient check on it at the
-    sequential step's C = 3 and swapped C = 1 calls: the check must pass the
-    kernel as written and refuse every mutant.  The max-scaled check
-    (an error of 1e-4 of the largest |dp| allowed) is printed beside."""
-    import ctypes
+# Broken copies of the head-loss backward: (name, the kernel's text, its
+# replacement).
+HEAD_LOSS_MUTANTS = [
+    ("a band drops the output row it shares with the band before",
+     "const int ya = __ldg(rband + rb), yb", "const int ya = __ldg(rband + rb) + (rb > 0), yb"),
+    ("the column contraction drops the hi tap",
+     "for (int xl = b0; xl < b1; ++xl) {", "for (int xl = b0; xl < b0; ++xl) {"),
+]
 
-    import torch
 
+def _start_mutants(name: str, mutants: list) -> list:
+    """Write the kernel as written and every mutant of ``csrc/<name>.cu``
+    under ``ops/build/mutants/`` and start one nvcc for each."""
     from ecologysemanticsegmentation_torch.ops import _build
-    from ecologysemanticsegmentation_torch.ops import loss_sums as ls
 
-    text = (_build.CSRC / "loss_sums.cu").read_text()
+    text = (_build.CSRC / f"{name}.cu").read_text()
     out_dir = _build.BUILD_DIR / "mutants"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = []
-    for i, (name, old, new) in enumerate([("as written", "", "")] + LOSS_SUMS_MUTANTS):
+    for i, (what, old, new) in enumerate([("as written", "", "")] + mutants):
         if old and text.count(old) != 1:
-            raise AssertionError(f"mutant {name!r}: its text is not in the kernel exactly once")
-        src, lib = out_dir / f"loss_sums_{i}.cu", out_dir / f"libloss_sums_{i}.so"
+            raise AssertionError(f"mutant {what!r}: its text is not in {name}.cu exactly once")
+        src, lib = out_dir / f"{name}_{i}.cu", out_dir / f"lib{name}_{i}.so"
         src.write_text(text.replace(old, new) if old else text)
-        procs.append((name, lib, subprocess.Popen(
+        procs.append((what, lib, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    return procs
+
+
+def _load_mutants(procs: list, signatures: dict) -> list:
+    import ctypes
+
     libs = []
-    for name, lib, proc in procs:
+    for what, lib, proc in procs:
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"mutant {name!r} did not build:\n{log}")
+            raise RuntimeError(f"mutant {what!r} did not build:\n{log}")
         cdll = ctypes.CDLL(str(lib))
-        for fn, argtypes in ls._SIGNATURES.items():
+        for fn, argtypes in signatures.items():
             getattr(cdll, fn).argtypes = argtypes
             getattr(cdll, fn).restype = ctypes.c_int
-        libs.append((name, cdll))
+        libs.append((what, cdll))
+    return libs
+
+
+def _judge_mutants(name: str, libs: list, run) -> None:
+    """Load each library as ``name`` in turn; ``run()`` gives the
+    element-wise and the max-scaled verdicts.  The element-wise check must
+    pass the kernel as written and refuse every mutant."""
+    from ecologysemanticsegmentation_torch.ops import _build
+
+    saved = _build._loaded.get(name)
+    try:
+        for what, cdll in libs:
+            _build._loaded[name] = cdll
+            new_ok, old_ok = run()
+            want = what == "as written"
+            print(f"mutant check {name} ({what}): elementwise check "
+                  f"{'passes' if new_ok else 'refuses'}, max-scaled check "
+                  f"{'passes' if old_ok else 'refuses'}", flush=True)
+            if new_ok != want:
+                raise AssertionError(f"the {name} gradient check "
+                                     f"{'refused' if want else 'passed'} the kernel {what}")
+    finally:
+        if saved is None:
+            _build._loaded.pop(name, None)
+        else:
+            _build._loaded[name] = saved
+
+
+def check_mutants() -> None:
+    """Build every ``LOSS_SUMS_MUTANTS`` and ``HEAD_LOSS_MUTANTS`` copy of
+    the kernel sources (one nvcc each, all together) and run phase 3's
+    gradient checks on each: the loss sums at the sequential step's C = 3
+    and swapped C = 1 calls, the head loss unsharded (batch 16 at the main
+    path's 64 -> 256 px, C = 3) and on the second row block of a 2-way
+    split at 512 px.  The checks must pass the kernels as written and
+    refuse every mutant.  The max-scaled check (an error of 1e-4 of the
+    largest gradient allowed, against the f32 plain version) is printed
+    beside."""
+    import torch
+
+    from ecologysemanticsegmentation_torch.ops import head_loss as hl
+    from ecologysemanticsegmentation_torch.ops import loss_sums as ls
+
+    ls_procs = _start_mutants("loss_sums", LOSS_SUMS_MUTANTS)
+    hl_procs = _start_mutants("head_loss", HEAD_LOSS_MUTANTS)
+    ls_libs = _load_mutants(ls_procs, ls._SIGNATURES)
+    hl_libs = _load_mutants(hl_procs, hl._SIGNATURES)
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     cases = [_loss_sums_inputs(shape, gen) + (shape[4],)
              for shape in (LOSS_SUMS_SHAPES[0], LOSS_SUMS_SHAPES[2])]
     refs = [tuple(t.T for t in ls.loss_sums_bwd_reference(p.T, g.T, cot))
             for p, g, cot, _ in cases]
-    saved = _build._loaded.get("loss_sums")
-    try:
-        for name, cdll in libs:
-            _build._loaded["loss_sums"] = cdll
-            new_ok = old_ok = True
-            for (p, g, cot, swapped), (dp_ref, dg_ref) in zip(cases, refs):
-                dp, dg = ls.loss_sums_bwd_cuda(p, g, cot)
-                torch.cuda.synchronize()
-                new_ok &= _loss_sums_grads_ok(dp, dg, dp_ref, dg_ref, nan_ok=swapped)[0]
-                fin = torch.isfinite(dp_ref)
-                old_ok &= bool(
-                    (dp - dp_ref)[fin].abs().max() <= GRAD_RTOL * dp_ref[fin].abs().max()
-                    and (dg - dg_ref).abs().max() <= GRAD_RTOL * dg_ref.abs().max())
-            want = name == "as written"
-            print(f"mutant check ({name}): elementwise check "
-                  f"{'passes' if new_ok else 'refuses'}, max-scaled check "
-                  f"{'passes' if old_ok else 'refuses'}", flush=True)
-            if new_ok != want:
-                raise AssertionError(f"the loss-sums gradient check "
-                                     f"{'refused' if want else 'passed'} the kernel {name}")
-    finally:
-        if saved is None:
-            _build._loaded.pop("loss_sums", None)
-        else:
-            _build._loaded["loss_sums"] = saved
+
+    def run_loss_sums():
+        new_ok = old_ok = True
+        for (p, g, cot, swapped), (dp_ref, dg_ref) in zip(cases, refs):
+            dp, dg = ls.loss_sums_bwd_cuda(p, g, cot)
+            torch.cuda.synchronize()
+            new_ok &= _loss_sums_grads_ok(dp, dg, dp_ref, dg_ref, nan_ok=swapped)[0]
+            fin = torch.isfinite(dp_ref)
+            old_ok &= bool(
+                (dp - dp_ref)[fin].abs().max() <= GRAD_RTOL * dp_ref[fin].abs().max()
+                and (dg - dg_ref).abs().max() <= GRAD_RTOL * dg_ref.abs().max())
+        return new_ok, old_ok
+
+    _judge_mutants("loss_sums", ls_libs, run_loss_sums)
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    head_cases = []
+    for shape, block in (((16, 64, 64, 256, 256, 3, True), None),
+                         ((8, 128, 128, 512, 512, 3, True), 1)):
+        logits, labels, cot = _head_inputs(shape, gen)
+        H = shape[3]
+        row0 = 0 if block is None else block * (H // 2)
+        if block is not None:
+            labels = labels[:, row0:row0 + H // 2].contiguous()
+        head_cases.append((logits, labels, cot, H, row0, block is not None,
+                           hl.head_sums_shard_bwd_reference(logits.double(), labels,
+                                                            cot.double(), H, row0),
+                           hl.head_sums_shard_bwd_reference(logits, labels, cot, H, row0)))
+
+    def run_head_loss():
+        new_ok = old_ok = True
+        for logits, labels, cot, H, row0, shard, dref64, dref32 in head_cases:
+            dx = (hl.head_sums_shard_bwd_cuda(logits, labels, cot, H, row0) if shard
+                  else hl.head_sums_bwd_cuda(logits, labels, cot))
+            torch.cuda.synchronize()
+            new_ok &= _head_grad_ok(dx, dref64)[0]
+            old_ok &= bool((dx - dref32).abs().max() <= GRAD_RTOL * dref32.abs().max())
+        return new_ok, old_ok
+
+    _judge_mutants("head_loss", hl_libs, run_head_loss)
 
 
 def _bf16_ulp(v):
@@ -1195,6 +1335,8 @@ def main() -> int:
         print(f"build {name}: {info['seconds']:.2f} s", flush=True)
         for entry, usage in _ptxas_usage(info["log"]):
             print(f"  ptxas {entry}: {usage}", flush=True)
+            if entry in ("head_fwd_kernel<3>", "head_bwd_kernel<3>") and _spills(usage):
+                raise AssertionError(f"{entry} spills registers at the main path's C = 3")
     print(f"build: {time.perf_counter() - t0:.2f} s wall", flush=True)
     # Phase 3: kernels against their plain versions.
     report = check_kernels(card)

@@ -3,21 +3,22 @@ sums, differentiable in the low-resolution logits (port of
 ``ecologysemanticsegmentation_tpu/ops/pallas/head_loss.py``).
 
 On CUDA tensors :func:`fused_head_loss_sums` launches the hand-written
-kernels of ``csrc/head_loss.cu`` (forward sums; backward recomputes the
-upsample and projects the cotangent back to 1/4 resolution), so the
-full-resolution logits and probabilities never exist in device memory.  On
-CPU tensors it runs the plain versions kept here, :func:`head_sums_reference`
-and :func:`head_sums_bwd_reference`, which compute the same functions with
-dense f32 interpolation matrices.  Any other device raises.
+kernels of ``csrc/head_loss.cu`` (forward sums; a one-launch backward that
+recomputes the upsample band by band and projects the cotangent back to 1/4
+resolution), so the full-resolution logits and probabilities never exist in
+device memory.  On CPU tensors it runs the plain versions kept here,
+:func:`head_sums_reference` and :func:`head_sums_bwd_reference`, which
+compute the same functions with dense interpolation matrices (f32, or f64
+for f64 logits).  Any other device raises.
 
 :func:`fused_head_loss_sums_shard` is one rank's part of the spatially
 partitioned loss (the JAX package's ``_make_fused_spatial``): all ``h``
 rows of the logits against the labels of output rows ``[row0, row0 + H_l)``
 of an ``H``-row image.  It launches the same kernels with the tap tables of
 that row block, which is all the kernels need: the forward reads the taps
-of its own output rows, and the backward's row-run table, built for the
-block, leaves every low-resolution row that no output row of the block
-reaches at exactly 0.
+of its own output rows, and the backward's band tables, built for the
+block, give every low-resolution row that no output row of the block
+reaches an empty range, so its dlogits are exactly 0.
 """
 
 from __future__ import annotations
@@ -33,21 +34,29 @@ from .loss_sums import EPS, GAMMA, NUM_SUMS, _sums_reference
 from .resize import _interp_taps, interp_matrix, resize_bilinear
 
 MAX_CHANNELS = 16
-PIX_PER_BLOCK = 2048  # output pixels per forward block (8 per thread)
 _MAX_SMEM = 232448    # bytes of shared memory a block may opt into on sm_90
+# ... less the forward's static reduction buffer (csrc/head_loss.cu
+# kMaxDynSmem).  The plans aim first for two blocks on an SM (the SM's
+# 228 KB, less 1 KB a block): on the H100, tiles of more rows paid more
+# than a third or fourth block (PERF.md).
+_MAX_DYN_SMEM = _MAX_SMEM - 8 * NUM_SUMS * MAX_CHANNELS * 4
+_FWD_SMEM_TARGET = 80 * 1024
+_SM_SMEM = 233472                  # shared memory of one SM
+_BWD_SMEM_TARGET = 113 * 1024
+_BLOCKS_PER_SM = 4
+_TILE_ROWS = (8, 4, 2, 1)          # output rows per tile, largest that fits first
+_BAND_ROWS = (32, 16, 8, 4, 2, 1)  # backward: low-resolution rows per band
 
-# Kernel launches on the main path, one per forward and one per backward
-# (the backward's two-stage launch counts once); a row block's launches
-# count under their own keys.
+# Kernel launches on the main path, one per forward and one per backward;
+# a row block's launches count under their own keys.
 launches = {"head_loss_fwd": 0, "head_loss_bwd": 0,
             "head_loss_shard_fwd": 0, "head_loss_shard_bwd": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "head_loss_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "head_loss_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                      _I, _I, _I, _I, _I, _I, _P],
+    "head_loss_fwd": [_P] * 9 + [_I] * 6 + [_I] * 6 + [_P],
+    "head_loss_bwd": [_P] * 11 + [_I] * 6 + [_I] * 7 + [_P],
 }
 
 
@@ -58,8 +67,10 @@ def library() -> ctypes.CDLL:
 
 def _upsample_block(logits_lr: torch.Tensor, H: int, W: int, row0: int, rows: int,
                     align_corners: bool) -> torch.Tensor:
-    """f32 upsampled logits of output rows ``[row0, row0 + rows)``."""
-    return resize_bilinear(logits_lr.float(), (H, W), align_corners, rows=(row0, rows))
+    """Upsampled logits of output rows ``[row0, row0 + rows)``: f32, or f64
+    for f64 logits."""
+    dt = torch.promote_types(logits_lr.dtype, torch.float32)
+    return resize_bilinear(logits_lr.to(dt), (H, W), align_corners, rows=(row0, rows))
 
 
 def head_sums_shard_reference(logits_lr: torch.Tensor, labels: torch.Tensor, H: int, row0: int,
@@ -83,14 +94,16 @@ def head_sums_shard_bwd_reference(logits_lr: torch.Tensor, labels: torch.Tensor,
                                   align_corners: bool = True) -> torch.Tensor:
     """Plain analytic backward of :func:`head_sums_shard_reference`: the
     formula of the Pallas ``_bwd_kernel`` with dense ``Mh^T``/``Mw^T``
-    projections, ``Mh`` restricted to the block's rows."""
+    projections, ``Mh`` restricted to the block's rows.  In f32, or in f64
+    for f64 logits: there ``1 - p`` keeps its digits where ``p`` nears 1,
+    which f32 rounds away (the checks of the kernels on the card use it)."""
     _, h, w, _ = logits_lr.shape
     _, Hl, W, _ = labels.shape
     p = torch.sigmoid(_upsample_block(logits_lr, H, W, row0, Hl, align_corners))
     g = labels.float()
     msk = (g >= 0).float()
     g = g * msk
-    k = cot.float()  # (8, C), broadcast over the trailing channel axis
+    k = cot.to(p.dtype)  # (8, C), broadcast over the trailing channel axis
     omp = 1.0 - p
     dp = (
         k[1]
@@ -103,8 +116,8 @@ def head_sums_shard_bwd_reference(logits_lr: torch.Tensor, labels: torch.Tensor,
         + k[6] * ((p > 0).float() - torch.sign(p) / (1.0 + torch.exp(p.abs())))
     )
     du = msk * dp * p * omp                                                 # (B, Hl, W, C)
-    mh = interp_matrix(H, h, align_corners, du.device)[row0:row0 + Hl]      # (Hl, h)
-    mw = interp_matrix(W, w, align_corners, du.device)                      # (W, w)
+    mh = interp_matrix(H, h, align_corners, du.device)[row0:row0 + Hl].to(du.dtype)  # (Hl, h)
+    mw = interp_matrix(W, w, align_corners, du.device).to(du.dtype)                  # (W, w)
     dx = torch.einsum("Hh,bHWc->bhWc", mh, du)
     dx = torch.einsum("Ww,bhWc->bhwc", mw, dx)
     return dx.to(logits_lr.dtype)
@@ -117,6 +130,14 @@ def head_sums_bwd_reference(logits_lr: torch.Tensor, labels: torch.Tensor,
                                          align_corners)
 
 
+def _block_taps(out_size: int, in_size: int, align_corners: bool, row0: int = 0,
+                rows: int | None = None):
+    """:func:`_interp_taps` of output indices ``[row0, row0 + rows)`` (all by
+    default)."""
+    sl = slice(row0, out_size if rows is None else row0 + rows)
+    return tuple(t[sl] for t in _interp_taps(out_size, in_size, align_corners))
+
+
 @functools.lru_cache(maxsize=64)
 def _tables(out_size: int, in_size: int, align_corners: bool, device: torch.device,
             row0: int = 0, rows: int | None = None):
@@ -127,9 +148,7 @@ def _tables(out_size: int, in_size: int, align_corners: bool, device: torch.devi
     lo tap is i and [rng[2,i], rng[3,i]) whose hi tap is i (the taps are
     non-decreasing; a source index no output of the block reaches has empty
     runs)."""
-    lo, hi, w_lo, w_hi = _interp_taps(out_size, in_size, align_corners)
-    sl = slice(row0, out_size if rows is None else row0 + rows)
-    lo, hi, w_lo, w_hi = lo[sl], hi[sl], w_lo[sl], w_hi[sl]
+    lo, hi, w_lo, w_hi = _block_taps(out_size, in_size, align_corners, row0, rows)
     src = np.arange(in_size)
     rng = np.stack([np.searchsorted(lo, src, "left"), np.searchsorted(lo, src, "right"),
                     np.searchsorted(hi, src, "left"), np.searchsorted(hi, src, "right")])
@@ -138,15 +157,165 @@ def _tables(out_size: int, in_size: int, align_corners: bool, device: torch.devi
             torch.from_numpy(rng.astype(np.int32)).to(device))
 
 
+def _band_ranges(lo: np.ndarray, hi: np.ndarray, in_size: int, band: int) -> np.ndarray:
+    """(2, ceil(in_size / band)) int32: for each band of source indices
+    ``[i0, i0 + band)``, the output indices ``[start, end)`` whose lo or hi
+    tap lies in it.  The taps never decrease and ``hi <= lo + 1``, so these
+    are one contiguous run: from the first output whose hi tap reaches
+    ``i0`` to the last whose lo tap is below ``i0 + band``.  An output whose
+    lo tap is in one band and hi tap in the next lies in both runs (the
+    backward recomputes it in both); a band no output reaches is empty."""
+    i0 = np.arange(0, in_size, band)
+    start = np.searchsorted(hi, i0, "left")
+    end = np.maximum(np.searchsorted(lo, np.minimum(i0 + band, in_size), "left"), start)
+    return np.stack([start, end]).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=64)
+def _bands(out_size: int, in_size: int, align_corners: bool, band: int, device: torch.device,
+           row0: int = 0, rows: int | None = None) -> torch.Tensor:
+    """:func:`_band_ranges` of the taps of output indices ``[row0, row0 +
+    rows)`` (block-local), on ``device``: the backward kernel's row bands
+    (and column bands)."""
+    lo, hi, _, _ = _block_taps(out_size, in_size, align_corners, row0, rows)
+    return torch.from_numpy(_band_ranges(lo, hi, in_size, band)).to(device)
+
+
+def _smem(C: int, rs: int, tw: int, nj: int, nl: int, nb: int = 0, jw: int = 0,
+          bwd: bool = False) -> int:
+    """Dynamic shared memory of one block, as ``csrc/head_loss.cu::layout``
+    lays it out: two mbarriers; two ring stages of a tile's labels and the
+    logit rows it reads; the row-interpolated logits; and in the backward a
+    tile's du, the band's dlogits, its column weights and runs, and two
+    stages of row taps."""
+    stage = -(-(rs * tw * C * 2) // 128) * 128 + -(-(nl * nj * C * 4) // 128) * 128
+    n = 128 + 2 * stage + rs * nj * C * 4
+    if bwd:
+        n += rs * tw * C * 4 + nb * jw * C * 4 + 2 * tw * 4 + 4 * jw * 4 + 2 * 4 * _TILE_ROWS[0] * 4
+    return n
+
+
+def _col_split(W: int, w: int, lo: np.ndarray, hi: np.ndarray, ncol: int):
+    """Output-column bands of ``ceil(W / ncol)`` columns: the width and the
+    most low-resolution columns one band reads."""
+    tw = -(-W // ncol)
+    a = np.arange(0, W, tw)
+    return tw, int((hi[np.minimum(a + tw, W) - 1] - lo[a]).max()) + 1
+
+
+def _tile_rows_read(lo: np.ndarray, hi: np.ndarray, rs: int) -> int:
+    """The most low-resolution rows any ``rs`` consecutive output rows read."""
+    y = np.arange(len(lo))
+    return int((hi[np.minimum(y + rs, len(lo)) - 1] - lo[y]).max()) + 1
+
+
+def _splits(n: int):
+    k = 1
+    while k < n:
+        yield k
+        k *= 2
+    yield n
+
+
+def _bulk_ok(W: int, w: int, C: int, tw: int, nj: int, aligned: bool) -> bool:
+    """A tile is one contiguous run of labels and one of logit rows, each of
+    16-byte multiples from 16-byte aligned tensors: the bulk copy's terms."""
+    return tw == W and nj == w and (W * C) % 8 == 0 and (w * C) % 4 == 0 and aligned
+
+
+@functools.lru_cache(maxsize=256)
+def _fwd_plan(B: int, h: int, w: int, H: int, Hl: int, row0: int, W: int, C: int,
+              align_corners: bool, sms: int, aligned: bool) -> tuple:
+    """Forward tiling: (rs, tpb, tw, nj, nl, tma, blocks).  Full-width
+    tiles of the most rows that fit two blocks on an SM (else one block),
+    split into column bands only where a row does not fit; the fewest tiles
+    per block (at most 8) that let every block run in one wave of the
+    blocks the SMs hold: a second, partial wave would leave most of the card
+    idle at the end.  ``tma`` where the bulk copy can
+    stream the tiles."""
+    ylo, yhi, _, _ = _block_taps(H, h, align_corners, row0, Hl)
+    lo, hi, _, _ = _interp_taps(W, w, align_corners)
+    for limit in (_FWD_SMEM_TARGET, _MAX_DYN_SMEM):
+        for ncol in _splits(W):
+            tw, nj = _col_split(W, w, lo, hi, ncol)
+            rs = next((r for r in _TILE_ROWS
+                       if _smem(C, r, tw, nj, _tile_rows_read(ylo, yhi, r)) <= limit), None)
+            if rs is None:
+                continue
+            ncol = -(-W // tw)
+            nl = _tile_rows_read(ylo, yhi, rs)
+            slots = sms * max(1, min(_BLOCKS_PER_SM, _SM_SMEM // (_smem(C, rs, tw, nj, nl) + 1024)))
+            tiles = -(-Hl // rs)
+            tpb = next((t for t in range(1, 9) if B * ncol * -(-tiles // t) <= slots), 8)
+            return (rs, tpb, tw, nj, nl, _bulk_ok(W, w, C, tw, nj, aligned),
+                    B * ncol * -(-tiles // tpb))
+    raise ValueError(f"no forward tiling fits shared memory at W = {W}, w = {w}, C = {C}")
+
+
+@functools.lru_cache(maxsize=256)
+def _bwd_plan(B: int, h: int, w: int, H: int, Hl: int, row0: int, W: int, C: int,
+              align_corners: bool, sms: int, aligned: bool) -> tuple:
+    """Backward tiling: (rs, tw, nj, nl, nb, jw, tma).  For each band
+    height in ``_BAND_ROWS``, full-width column bands if they fit (else the
+    fewest that do) and the most tile rows that fit two blocks on an SM
+    (else one); of these, the least estimated time: the most blocks on one
+    SM times a block's recomputed rows and columns, twice that where an SM
+    holds one block (too few warps to hide latency), plus a row per tile,
+    and half again without the bulk copy.  Taller bands recompute fewer
+    shared output rows (one run of about H/h rows per band edge); shorter
+    ones fill the card."""
+    ylo, yhi, _, _ = _block_taps(H, h, align_corners, row0, Hl)
+    xlo, xhi, _, _ = _interp_taps(W, w, align_corners)
+    for limit in (_BWD_SMEM_TARGET, _MAX_DYN_SMEM):
+        best = None
+        for nb in _BAND_ROWS:
+            rows = np.diff(_band_ranges(ylo, yhi, h, nb), axis=0)[0]
+            for ncol in _splits(w):
+                jw = -(-w // ncol)
+                bands = _band_ranges(xlo, xhi, w, jw)
+                cols = bands[1] - bands[0]
+                tw = int(cols.max())
+                bands = bands[:, cols > 0]
+                nj = int((xhi[bands[1] - 1] - xlo[bands[0]]).max()) + 1
+                rs = next((r for r in _TILE_ROWS if _smem(
+                    C, r, tw, nj, _tile_rows_read(ylo, yhi, r), nb, jw, True) <= limit), None)
+                if rs is None:
+                    continue
+                per_sm = -(-B * int((rows > 0).sum()) * int((cols > 0).sum()) // sms)
+                tma = _bulk_ok(W, w, C, tw, nj, aligned)
+                # a tile's synchronisations and contractions cost about a row
+                # more; tiles loaded by the block itself where a bulk copy
+                # could have streamed them, about half again
+                cost = (per_sm * (int(rows.max()) + -(-int(rows.max()) // rs)) * tw
+                        * (2 if per_sm == 1 else 1)
+                        * (1.5 if not tma and _bulk_ok(W, w, C, W, w, aligned) else 1))
+                if best is None or cost < best[0]:
+                    best = (cost, (rs, tw, nj, _tile_rows_read(ylo, yhi, rs), nb, jw, tma))
+                break
+        if best is not None:
+            return best[1]
+    raise ValueError(f"no backward tiling fits shared memory at W = {W}, w = {w}, C = {C}")
+
+
+@functools.lru_cache(maxsize=8)
+def _ticket(device: torch.device) -> torch.Tensor:
+    """The forward's finished-block counter on ``device``: 0 between launches."""
+    return torch.zeros(1, dtype=torch.int32, device=device)
+
+
+@functools.lru_cache(maxsize=8)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _check(logits_lr: torch.Tensor, labels: torch.Tensor) -> None:
-    if logits_lr.dim() != 4 or labels.dim() != 4:
-        raise ValueError(f"expected NHWC logits and labels, got {tuple(logits_lr.shape)} "
-                         f"and {tuple(labels.shape)}")
-    B, h, w, C = logits_lr.shape
-    B2, H, W, C2 = labels.shape
+    xs, gs = logits_lr.shape, labels.shape
+    if len(xs) != 4 or len(gs) != 4:
+        raise ValueError(f"expected NHWC logits and labels, got {tuple(xs)} and {tuple(gs)}")
+    B, h, w, C = xs
+    B2, H, W, C2 = gs
     if B != B2 or C != C2:
-        raise ValueError(f"batch/channels differ: logits {tuple(logits_lr.shape)}, "
-                         f"labels {tuple(labels.shape)}")
+        raise ValueError(f"batch/channels differ: logits {tuple(xs)}, labels {tuple(gs)}")
     if not 1 <= C <= MAX_CHANNELS:
         raise ValueError(f"{C} channels: the head-loss kernel takes 1..{MAX_CHANNELS}")
     if logits_lr.dtype != torch.float32:
@@ -155,16 +324,13 @@ def _check(logits_lr: torch.Tensor, labels: torch.Tensor) -> None:
         raise TypeError(f"labels must be bfloat16, got {labels.dtype}")
     if not (logits_lr.is_contiguous() and labels.is_contiguous()):
         raise ValueError("logits and labels must be contiguous NHWC tensors")
-    if logits_lr.device != labels.device:
-        raise ValueError(f"logits on {logits_lr.device}, labels on {labels.device}")
-    if logits_lr.device.type not in ("cpu", "cuda"):
-        raise RuntimeError(f"no head-loss implementation for {logits_lr.device}")
+    dev = logits_lr.device
+    if dev != labels.device:
+        raise ValueError(f"logits on {dev}, labels on {labels.device}")
+    if dev.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"no head-loss implementation for {dev}")
     if W * C * 4 + NUM_SUMS * C * 4 > _MAX_SMEM:
-        raise ValueError(f"W*C = {W * C} is too wide for the backward's shared-memory row")
-
-
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+        raise ValueError(f"W*C = {W * C} is wider than the head-loss kernels take")
 
 
 def _stream(device: torch.device) -> ctypes.c_void_p:
@@ -182,51 +348,76 @@ def _check_block(labels: torch.Tensor, H: int, row0: int) -> None:
         raise ValueError(f"row block [{row0}, {row0 + Hl}) is not inside the image's {H} rows")
 
 
-def _check_cuda(logits_lr: torch.Tensor, labels: torch.Tensor) -> None:
+def _check_cuda(logits_lr: torch.Tensor, labels: torch.Tensor, H: int, row0: int) -> None:
     _check(logits_lr, labels)
+    _check_block(labels, H, row0)
     if not logits_lr.is_cuda:
         raise ValueError(f"the CUDA kernels take CUDA tensors, got {logits_lr.device}")
 
 
+@functools.lru_cache(maxsize=256)
+def _launch_args(bwd: bool, B: int, h: int, w: int, C: int, H: int, Hl: int, row0: int, W: int,
+                 align_corners: bool, device: torch.device, aligned: bool) -> tuple:
+    """Everything a launch takes but its tensors, per shape: the tables
+    (kept alive here), their pointers, the plan's integers, and the
+    forward's partial count."""
+    y_idx, y_wt, _ = _tables(H, h, align_corners, device, row0, Hl)
+    x_idx, x_wt, x_rng = _tables(W, w, align_corners, device)
+    if not bwd:
+        rs, tpb, tw, nj, nl, tma, nblk = _fwd_plan(B, h, w, H, Hl, row0, W, C, align_corners,
+                                                   _sm_count(device), aligned)
+        keep = (y_idx, y_wt, x_idx, x_wt)
+        return (keep, tuple(t.data_ptr() for t in keep),
+                (B, h, w, Hl, W, C, rs, tpb, tw, nj, nl, int(tma)), nblk)
+    rs, tw, nj, nl, nb, jw, tma = _bwd_plan(B, h, w, H, Hl, row0, W, C, align_corners,
+                                            _sm_count(device), aligned)
+    keep = (y_idx, y_wt, x_idx, x_wt, x_rng, _bands(H, h, align_corners, nb, device, row0, Hl),
+            _bands(W, w, align_corners, jw, device))
+    return (keep, tuple(t.data_ptr() for t in keep),
+            (B, h, w, Hl, W, C, rs, tw, nj, nl, nb, jw, int(tma)), 0)
+
+
+def _aligned(logits_lr: torch.Tensor, labels: torch.Tensor) -> bool:
+    return (logits_lr.data_ptr() | labels.data_ptr()) % 16 == 0
+
+
 def _fwd_cuda(logits_lr: torch.Tensor, labels: torch.Tensor, H: int, row0: int,
               align_corners: bool, key: str) -> torch.Tensor:
-    """The forward kernel on output rows ``[row0, row0 + H_l)`` of ``H``;
-    per-block partials are summed here in a fixed order (deterministic; no
-    float atomics).  Counts one launch under ``key``."""
-    _check_cuda(logits_lr, labels)
-    _check_block(labels, H, row0)
+    """The forward kernel on output rows ``[row0, row0 + H_l)`` of ``H``
+    (inputs checked by the caller): its last block adds the per-block
+    partials in a fixed order (deterministic; no float atomics), counted by
+    the device's ticket, which it leaves at 0 again.  The ticket is one per
+    device, so launches on one stream at a time (the current stream, as
+    autograd runs them).  Counts one launch under ``key``."""
     B, h, w, C = logits_lr.shape
     _, Hl, W, _ = labels.shape
     dev = logits_lr.device
-    y_idx, y_wt, _ = _tables(H, h, bool(align_corners), dev, row0, Hl)
-    x_idx, x_wt, _ = _tables(W, w, bool(align_corners), dev)
-    nblk = -(-Hl * W // PIX_PER_BLOCK)
-    partials = torch.empty((B * nblk, NUM_SUMS, C), dtype=torch.float32, device=dev)
-    rc = library().head_loss_fwd(_ptr(logits_lr), _ptr(labels), _ptr(y_idx), _ptr(y_wt),
-                                 _ptr(x_idx), _ptr(x_wt), _ptr(partials),
-                                 B, h, w, Hl, W, C, PIX_PER_BLOCK, _stream(dev))
+    _, tables, ints, nblk = _launch_args(False, B, h, w, C, H, Hl, row0, W, bool(align_corners),
+                                         dev, _aligned(logits_lr, labels))
+    partials = torch.empty((nblk + 1, NUM_SUMS, C), dtype=torch.float32, device=dev)
+    ptr = partials.data_ptr()
+    rc = library().head_loss_fwd(logits_lr.data_ptr(), labels.data_ptr(), *tables, ptr,
+                                 _ticket(dev).data_ptr(), ptr + nblk * NUM_SUMS * C * 4, *ints,
+                                 _stream(dev))
     _raise_on(rc, key)
     launches[key] += 1
-    return partials.sum(0)
+    return partials[nblk]
 
 
 def _bwd_cuda(logits_lr: torch.Tensor, labels: torch.Tensor, cot: torch.Tensor, H: int,
               row0: int, align_corners: bool, key: str) -> torch.Tensor:
-    """The backward kernels on output rows ``[row0, row0 + H_l)`` of ``H``:
-    dlogits (B, h, w, C) f32 for all h rows.  Counts one launch under ``key``."""
-    _check_cuda(logits_lr, labels)
-    _check_block(labels, H, row0)
+    """The backward kernel on output rows ``[row0, row0 + H_l)`` of ``H``
+    (inputs checked by the caller): dlogits (B, h, w, C) f32 for all h
+    rows.  Counts one launch under ``key``."""
     B, h, w, C = logits_lr.shape
     _, Hl, W, _ = labels.shape
     dev = logits_lr.device
     k = cot.to(device=dev, dtype=torch.float32).contiguous()
-    y_idx, y_wt, y_rng = _tables(H, h, bool(align_corners), dev, row0, Hl)
-    x_idx, x_wt, x_rng = _tables(W, w, bool(align_corners), dev)
-    z = torch.empty((B, Hl, w, C), dtype=torch.float32, device=dev)
+    _, tables, ints, _ = _launch_args(True, B, h, w, C, H, Hl, row0, W, bool(align_corners),
+                                      dev, _aligned(logits_lr, labels))
     dx = torch.empty((B, h, w, C), dtype=torch.float32, device=dev)
-    rc = library().head_loss_bwd(_ptr(logits_lr), _ptr(labels), _ptr(k), _ptr(y_idx),
-                                 _ptr(y_wt), _ptr(y_rng), _ptr(x_idx), _ptr(x_wt), _ptr(x_rng),
-                                 _ptr(z), _ptr(dx), B, h, w, Hl, W, C, _stream(dev))
+    rc = library().head_loss_bwd(logits_lr.data_ptr(), labels.data_ptr(), k.data_ptr(), *tables,
+                                 dx.data_ptr(), *ints, _stream(dev))
     _raise_on(rc, key)
     launches[key] += 1
     return dx
@@ -235,31 +426,37 @@ def _bwd_cuda(logits_lr: torch.Tensor, labels: torch.Tensor, cot: torch.Tensor, 
 def head_sums_cuda(logits_lr: torch.Tensor, labels: torch.Tensor,
                    align_corners: bool = True) -> torch.Tensor:
     """Forward kernel: (8, C) f32 sums."""
-    return _fwd_cuda(logits_lr, labels, labels.shape[1], 0, align_corners, "head_loss_fwd")
+    H = labels.shape[1]
+    _check_cuda(logits_lr, labels, H, 0)
+    return _fwd_cuda(logits_lr, labels, H, 0, align_corners, "head_loss_fwd")
 
 
 def head_sums_bwd_cuda(logits_lr: torch.Tensor, labels: torch.Tensor, cot: torch.Tensor,
                        align_corners: bool = True) -> torch.Tensor:
-    """Backward kernels: dlogits (B, h, w, C) f32."""
-    return _bwd_cuda(logits_lr, labels, cot, labels.shape[1], 0, align_corners,
-                     "head_loss_bwd")
+    """Backward kernel: dlogits (B, h, w, C) f32."""
+    H = labels.shape[1]
+    _check_cuda(logits_lr, labels, H, 0)
+    return _bwd_cuda(logits_lr, labels, cot, H, 0, align_corners, "head_loss_bwd")
 
 
 def head_sums_shard_cuda(logits_lr: torch.Tensor, labels: torch.Tensor, H: int, row0: int,
                          align_corners: bool = True) -> torch.Tensor:
     """Forward kernel on one row block: the block's (8, C) f32 sums."""
+    _check_cuda(logits_lr, labels, H, row0)
     return _fwd_cuda(logits_lr, labels, H, row0, align_corners, "head_loss_shard_fwd")
 
 
 def head_sums_shard_bwd_cuda(logits_lr: torch.Tensor, labels: torch.Tensor, cot: torch.Tensor,
                              H: int, row0: int, align_corners: bool = True) -> torch.Tensor:
-    """Backward kernels on one row block: dlogits (B, h, w, C) f32."""
+    """Backward kernel on one row block: dlogits (B, h, w, C) f32."""
+    _check_cuda(logits_lr, labels, H, row0)
     return _bwd_cuda(logits_lr, labels, cot, H, row0, align_corners, "head_loss_shard_bwd")
 
 
 class _FusedHeadLoss(torch.autograd.Function):
-    """Sums of output rows ``[row0, row0 + H_l)`` of an ``H``-row upsample;
-    ``shard`` selects the row block's launch counters."""
+    """Sums of output rows ``[row0, row0 + H_l)`` of an ``H``-row upsample
+    (inputs checked by the caller); ``shard`` selects the row block's
+    launch counters."""
 
     @staticmethod
     def forward(ctx, logits_lr, labels, H, row0, align_corners, shard):
@@ -268,9 +465,8 @@ class _FusedHeadLoss(torch.autograd.Function):
         ctx.shard = shard
         if not logits_lr.is_cuda:
             return head_sums_shard_reference(logits_lr, labels, H, row0, align_corners)
-        if shard:
-            return head_sums_shard_cuda(logits_lr, labels, H, row0, align_corners)
-        return head_sums_cuda(logits_lr, labels, align_corners)
+        return _fwd_cuda(logits_lr, labels, H, row0, align_corners,
+                         "head_loss_shard_fwd" if shard else "head_loss_fwd")
 
     @staticmethod
     def backward(ctx, cot):
@@ -278,10 +474,9 @@ class _FusedHeadLoss(torch.autograd.Function):
         H, row0, align_corners = ctx.args
         if not logits_lr.is_cuda:
             dx = head_sums_shard_bwd_reference(logits_lr, labels, cot, H, row0, align_corners)
-        elif ctx.shard:
-            dx = head_sums_shard_bwd_cuda(logits_lr, labels, cot, H, row0, align_corners)
         else:
-            dx = head_sums_bwd_cuda(logits_lr, labels, cot, align_corners)
+            dx = _bwd_cuda(logits_lr, labels, cot, H, row0, align_corners,
+                           "head_loss_shard_bwd" if ctx.shard else "head_loss_bwd")
         return dx, None, None, None, None, None  # labels carry no gradient
 
 

@@ -116,11 +116,14 @@ def cuda():
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,h,scale,c,align_corners", [
     (2, 16, 4, 3, True), (3, 16, 4, 1, True), (1, 16, 4, 11, False), (1, 32, 4, 16, True),
-    (2, 12, 3, 2, False),
+    (2, 12, 3, 2, False), (2, 13, 4, 3, False),
 ])
 def test_cuda_kernels_match_plain(cuda, b, h, scale, c, align_corners):
-    """Forward sums at rtol 1e-4 (f32 sums in another order); dlogits at
-    1e-4 of max |dlogits|; the count row exactly."""
+    """Forward sums at rtol 1e-4 (f32 sums in another order) against the
+    plain version, the count row exactly; dlogits element by element at
+    rtol 1e-4 / atol 1e-5 of max |dlogits| against the plain version in
+    float64 (the kernel forms 1 - p without cancellation, which the f32
+    plain version loses where p nears 1); a second launch bitwise equal."""
     rs = np.random.RandomState(0)
     logits = torch.tensor(rs.randn(b, h, h, c) * 3.0, dtype=torch.float32, device=cuda)
     labels = (rs.rand(b, h * scale, h * scale, c) > 0.5).astype(np.float32)
@@ -135,10 +138,13 @@ def test_cuda_kernels_match_plain(cuda, b, h, scale, c, align_corners):
     assert hl.launches["head_loss_fwd"] == before["head_loss_fwd"] + 1
     assert hl.launches["head_loss_bwd"] == before["head_loss_bwd"] + 1
     ref = hl.head_sums_reference(logits, labels, align_corners)
-    dref = hl.head_sums_bwd_reference(logits, labels, cot, align_corners)
+    dref = hl.head_sums_bwd_reference(logits.double(), labels, cot.double(), align_corners)
     torch.testing.assert_close(sums, ref, rtol=1e-4, atol=1e-3)
     assert torch.equal(sums[7], (labels >= 0).sum((0, 1, 2)).float())
-    torch.testing.assert_close(x.grad, dref, rtol=0, atol=1e-4 * dref.abs().max().item())
+    torch.testing.assert_close(x.grad.double(), dref, rtol=1e-4,
+                               atol=1e-5 * dref.abs().max().item())
+    assert torch.equal(hl.head_sums_cuda(logits, labels, align_corners), sums.detach())
+    assert torch.equal(hl.head_sums_bwd_cuda(logits, labels, cot, align_corners), x.grad)
 
 
 @pytest.mark.gpu
@@ -147,8 +153,8 @@ def test_cuda_shard_kernels_match_plain(cuda, n, c):
     """Every row block of an n-way split (64 -> 256 rows, 4 images): the
     block's sums at rtol 1e-4 with the count row exact, its dlogits element
     by element at rtol 1e-4 / atol 1e-5 of max |dlogits| against the plain
-    version; the blocks' sums and dlogits added together equal the
-    unsharded kernel's at the same bounds."""
+    version in float64; the blocks' sums and dlogits added together equal
+    the unsharded kernel's at the same bounds."""
     rs = np.random.RandomState(n * 16 + c)
     logits = torch.tensor(rs.randn(4, 64, 64, c), dtype=torch.float32, device=cuda)
     labels = (rs.rand(4, 256, 256, c) > 0.5).astype(np.float32)
@@ -167,10 +173,12 @@ def test_cuda_shard_kernels_match_plain(cuda, n, c):
         assert hl.launches["head_loss_shard_fwd"] == before["head_loss_shard_fwd"] + 1
         assert hl.launches["head_loss_shard_bwd"] == before["head_loss_shard_bwd"] + 1
         ref = hl.head_sums_shard_reference(logits, block, 256, k * rows)
-        dref = hl.head_sums_shard_bwd_reference(logits, block, cot, 256, k * rows)
+        dref = hl.head_sums_shard_bwd_reference(logits.double(), block, cot.double(), 256,
+                                                k * rows)
         torch.testing.assert_close(sums, ref, rtol=1e-4, atol=1e-3)
         assert torch.equal(sums[7], (block >= 0).sum((0, 1, 2)).float())
-        torch.testing.assert_close(x.grad, dref, rtol=1e-4, atol=1e-5 * dref.abs().max().item())
+        torch.testing.assert_close(x.grad.double(), dref, rtol=1e-4,
+                                   atol=1e-5 * dref.abs().max().item())
         total, dtotal = total + sums.detach(), dtotal + x.grad
     full = hl.head_sums_cuda(logits, labels)
     dfull = hl.head_sums_bwd_cuda(logits, labels, cot)
