@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # from the root of a checkout
     python3 chip_smoke.py --mutants  # only: the gradient checks against broken kernels
+    python3 chip_smoke.py --loss-sums-times [TREE]  # only: the loss-sums kernels' times
 
 Phases, each fatal on failure (an exception ends the run with a non-zero
 exit code before the result line is printed):
@@ -11,7 +12,8 @@ exit code before the result line is printed):
 2. build: the three CUDA kernel sources from
    ``ecologysemanticsegmentation_torch/ops/csrc`` with nvcc, one process per
    source, all started together; each kernel's registers and spills (the
-   head-loss kernels must not spill at C = 3);
+   head-loss kernels must not spill at C = 3, the loss-sums kernels at
+   C = 1 and 3);
 3. kernels: every kernel against its plain PyTorch version on the card at the
    main paths' shapes and at the other shapes it serves, with its time, the
    plain version's time and its bound (the head loss also at 512, 768 and
@@ -23,10 +25,13 @@ exit code before the result line is printed):
    tables, at the 512 px spatial step's shard shapes for every block of a
    2- and 4-way split at C = 3, 1 and 11, dlogits element by element, and
    the blocks added together against the unsharded kernel;
-   the loss sums at the sequential step's C = 3 and C = 1 calls and at
-   the spatial sequential step's per-shard call,
-   their gradients element by element, and the single-organ call with
-   ``-1`` labels in the prediction slot, NaN where the plain version is);
+   the loss sums at the sequential step's C = 3 and C = 1 calls, the
+   single-organ call with ``-1`` labels in the prediction slot (NaN where
+   the plain version is), a ragged tail, C = 11 and 1024 px, and at the
+   spatial sequential step's per-shard call, their gradients element by
+   element, each kernel launched twice and bitwise equal, each call's
+   backward timed writing the gradient its path asks for, and a cold time
+   beside the warm one at the main shape);
    device augmentation on the card against the same draws on the CPU, in
    both CLAHE forms; a small batch of the unaugmented step on the card
    against the step on the CPU (plain versions), for the flagship
@@ -73,11 +78,16 @@ Without a CUDA device, or without the rest of the repository beside it, the
 script exits non-zero and prints no result.
 
 ``--mutants`` builds copies of ``csrc/loss_sums.cu`` with one term of the
-backward broken each, and of ``csrc/head_loss.cu`` with a band edge or a
-column tap of the backward broken (under the gitignored
-``ops/build/mutants/``), and shows that phase 3's element-wise gradient
-checks refuse every one and pass the kernels as written; it prints the
-looser max-scaled check's verdict beside.
+backward, or its pixel-stride path, broken each, and of
+``csrc/head_loss.cu`` with a band edge or a column tap of the backward
+broken (under the gitignored ``ops/build/mutants/``), and shows that phase
+3's element-wise gradient checks refuse every one and pass the kernels as
+written; it prints the looser max-scaled check's verdict beside.
+
+``--loss-sums-times [TREE]`` only times the loss-sums kernels as phase 3
+does (warm at every timed call, cold at the main shape), with the package of
+the checkout at TREE (this one by default), so that two trees' kernels can
+be timed in turns on one card.
 """
 
 from __future__ import annotations
@@ -150,7 +160,7 @@ CLAHE_ATOL = 1e-5   # f32 sums of <= K + 2 terms of magnitude <= 1, in another o
 # the p slot, probabilities in the g slot, so a -1 label makes rows 4-5 and
 # dp NaN, in the plain version as in the JAX package), C = 11, a ragged
 # tail, 1024 px, and the spatial sequential step's per-shard call (512 px,
-# batch 8, the first of 2 row blocks; timed in check_shard_kernels).
+# batch 8, the first of 2 row blocks).
 LOSS_SUMS_SHAPES = [
     (128, 256, 256, 3, False),
     (128, 256, 256, 1, False),
@@ -164,6 +174,12 @@ LOSS_SUMS_SHAPES = [
 # ulps, except on at most 1% of the pixels (a rounding difference moved the
 # pixel across a CLAHE bin or a hue sector), which stay within 1/16.
 AUG_ULPS, AUG_FLIP_FRAC, AUG_FLIP_MAX = 2, 0.01, 1 / 16
+# The calls timed, each backward writing the gradient its path asks for:
+# (index into LOSS_SUMS_SHAPES, "dp" or "dg").  The sequential step's C = 3
+# call and its C = 1 cross term (the probabilities' difference in the p
+# slot) ask for dp, the single-organ call (probabilities in the g slot) for
+# dg, the per-shard call for dp.
+LOSS_SUMS_TIMED = [(0, "dp"), (1, "dp"), (2, "dg"), (6, "dp")]
 SUM_RTOL = 1e-4     # 8.4 M-term f32 sums, summed in another order
 GRAD_RTOL = 1e-4    # of the largest gradient: the max-scaled check --mutants prints beside
 # Loss-sums gradients, element by element: |got - want| <= atol + rtol |want|.
@@ -172,6 +188,11 @@ GRAD_RTOL = 1e-4    # of the largest gradient: the max-scaled check --mutants pr
 # each other to near 0 their ~1e-6 absolute rounding stays under the atol.
 LS_GRAD_RTOL, LS_GRAD_ATOL = 1e-4, 1e-5
 STEP_RTOL = 3e-2    # bf16 autocast on the card against the f32 step on the CPU
+
+
+# Kernels that must not spill registers: the main paths' channel counts.
+NO_SPILL = ("head_fwd_kernel<3>", "head_bwd_kernel<3>", "loss_sums_fwd_kernel<1>",
+            "loss_sums_fwd_kernel<3>", "loss_sums_bwd_kernel<1>", "loss_sums_bwd_kernel<3>")
 
 
 def _card() -> str:
@@ -220,6 +241,48 @@ def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _time_host_ms(fn, iters: int = 20) -> float:
+    """Host wall time to enqueue one call of ``fn`` (the card idle and
+    synchronized before and after): where it is not below :func:`_time_ms`,
+    that time is the host's dispatch rate and the kernel's own is less."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / iters
+
+
+def _time_graph_ms(fn, iters: int = 20) -> float:
+    """Device time of one call of ``fn``, free of host dispatch: ``iters``
+    calls captured in one CUDA graph, its replays timed with events."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # allocations and cached buffers outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (5 * iters)
 
 
 def _head_inputs(shape, gen):
@@ -357,13 +420,10 @@ def check_shard_kernels(card: str) -> dict:
     and n = 4 (dlogits against it in float64), each block's kernels
     launched twice and bitwise equal; the blocks' sums and dlogits added
     together against the unsharded kernel's.  Time, plain time and bound at the main path's
-    block (C = 3, n = 2, first block); also the loss-sums kernels' times at
-    that block's full-resolution shape, the per-shard call of the
-    sequential spatial step (PERF.md row 8)."""
+    block (C = 3, n = 2, first block)."""
     import torch
 
     from ecologysemanticsegmentation_torch.ops import head_loss as hl
-    from ecologysemanticsegmentation_torch.ops import loss_sums as ls
 
     gen = torch.Generator(device="cuda").manual_seed(8)
     report = {}
@@ -441,20 +501,6 @@ def check_shard_kernels(card: str) -> dict:
                 name="head_loss_shard_bwd", route="cuda", source=src, replaces=f"{tpu}:382",
                 max_abs_err=dworst, ms=bwd_ms, plain_ms=bwd_plain, bound_ms=bb, bound_by=bby,
                 library_ms=None)
-            # Row 8: the loss-sums kernels on one shard's full-resolution
-            # block (held against their plain versions in check_loss_sums).
-            probs = torch.rand((B, rows, W, C), generator=gen, device="cuda").reshape(-1, C)
-            g2 = block.float().reshape(-1, C)
-            lf = _time_ms(lambda: ls.loss_sums_cuda(probs, g2))
-            lf_plain = _time_ms(lambda: ls._sums_reference(probs.T, g2.T), iters=5)
-            lb = _time_ms(lambda: ls.loss_sums_bwd_cuda(probs, g2, cot, True, False))
-            lb_plain = _time_ms(lambda: ls.loss_sums_bwd_reference(probs.T, g2.T, cot), iters=5)
-            lfb, lfby = _bound(8 * elems + 8 * C * 4, elems * LS_FWD_OPS_PER_ELEM)
-            lbb, lbby = _bound(12 * elems + 8 * C * 4, elems * LS_DP_OPS_PER_ELEM)
-            print(f"kernel times loss_sums per shard at {(B, rows, W, C)} [{card}]: fwd {lf:.4f} "
-                  f"ms (plain {lf_plain:.4f}, bound {lfb:.4f} by {lfby}), bwd writing dp "
-                  f"{lb:.4f} ms (plain {lb_plain:.4f}, both gradients; bound {lbb:.4f} by "
-                  f"{lbby})", flush=True)
     return report
 
 
@@ -551,26 +597,79 @@ def _loss_sums_grads_ok(dp, dg, dp_ref, dg_ref, nan_ok: bool) -> tuple[bool, flo
     return dp_ok and dg_ok and bool(torch.isfinite(dg).all()), dp_err, dg_err
 
 
+def _bitwise_equal(a, b) -> bool:
+    """Equal bit for bit, NaN included."""
+    import torch
+
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def time_loss_sums(ls, card: str) -> dict:
+    """Warm times of the loss-sums kernels of module ``ls`` (this tree's, or
+    another tree's: the wrappers keep their signatures) at every
+    ``LOSS_SUMS_TIMED`` call, each backward writing the gradient its path
+    asks for; beside them the host's enqueue time per call and the device
+    time in a CUDA graph (free of host dispatch), and cold times (after a
+    write larger than the L2) at the main shape.  Returns {shape: {"fwd",
+    "bwd", "grad", "fwd_host", "bwd_host", "fwd_graph", "bwd_graph"[,
+    "fwd_cold", "bwd_cold"]}}."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    times = {}
+    for idx, grad in LOSS_SUMS_TIMED:
+        shape = LOSS_SUMS_SHAPES[idx]
+        p2, g2, cot = _loss_sums_inputs(shape, gen)
+        need_dp = grad == "dp"
+
+        def fwd():
+            return ls.loss_sums_cuda(p2, g2)
+
+        def bwd():
+            return ls.loss_sums_bwd_cuda(p2, g2, cot, need_dp, not need_dp)
+
+        t = {"fwd": _time_ms(fwd), "bwd": _time_ms(bwd), "grad": grad}
+        for k, fn in (("fwd", fwd), ("bwd", bwd)):
+            t[k + "_host"], t[k + "_graph"] = _time_host_ms(fn), _time_graph_ms(fn)
+        cold = ""
+        if idx == 0:
+            t["fwd_cold"], t["bwd_cold"] = _time_cold_ms(fwd), _time_cold_ms(bwd)
+            cold = (f"; cold (L2 flushed by a 256 MiB write before each launch, whose dirty "
+                    f"lines the call then writes back): fwd {t['fwd_cold']:.4f} ms, bwd "
+                    f"{t['bwd_cold']:.4f} ms")
+        times[shape] = t
+        print(f"loss_sums times at {shape} [{card}] ({Path(ls.__file__).parents[2].name}): fwd "
+              f"{t['fwd']:.4f} ms, bwd writing {grad} {t['bwd']:.4f} ms (host enqueue per call "
+              f"{t['fwd_host']:.4f}, {t['bwd_host']:.4f}; in a CUDA graph {t['fwd_graph']:.4f}, "
+              f"{t['bwd_graph']:.4f}){cold}", flush=True)
+        del p2, g2, cot
+    return times
+
+
 def check_loss_sums(card: str) -> dict:
     """Phase 3: the loss-sums kernels against their plain versions at every
-    shape, both gradients written and compared element by element; time,
-    plain time and bound at the two shapes of the sequential step, with the
-    backward writing what the path asks for there (dp at C = 3, dg at
-    C = 1: a C = 1 call puts the probabilities in the label slot).  In the
-    swapped call rows 4-5 and dp must be NaN exactly where the plain
-    version's are, and the other rows and dg finite and close."""
+    shape, both gradients written and compared element by element, each
+    kernel launched twice on the same inputs and bitwise equal (NaN
+    included); times (:func:`time_loss_sums`), plain times and bounds at the
+    ``LOSS_SUMS_TIMED`` calls.  In the swapped call rows 4-5 and dp must be
+    NaN exactly where the plain version's are, and the other rows and dg
+    finite and close."""
     import torch
 
     from ecologysemanticsegmentation_torch.ops import loss_sums as ls
 
     gen = torch.Generator(device="cuda").manual_seed(7)
-    report = {}
+    report, errs = {}, {}
     for shape in LOSS_SUMS_SHAPES:
         B, H, W, C, swapped = shape
         p2, g2, cot = _loss_sums_inputs(shape, gen)
         sums = ls.loss_sums_cuda(p2, g2)
         ref = ls._sums_reference(p2.T, g2.T)
         dp, dg = ls.loss_sums_bwd_cuda(p2, g2, cot)
+        dp1 = ls.loss_sums_bwd_cuda(p2, g2, cot, True, False)[0]
+        dg1 = ls.loss_sums_bwd_cuda(p2, g2, cot, False, True)[1]
+        same = (_bitwise_equal(ls.loss_sums_cuda(p2, g2), sums)
+                and _bitwise_equal(dp1, dp) and _bitwise_equal(dg1, dg))
         dp_ref, dg_ref = ls.loss_sums_bwd_reference(p2.T, g2.T, cot)
         dp_ref, dg_ref = dp_ref.T, dg_ref.T
         torch.cuda.synchronize()
@@ -582,55 +681,66 @@ def check_loss_sums(card: str) -> dict:
         nan_rows = (bool(torch.isnan(ref[4:6]).all() and torch.isnan(dp_ref).any()
                          and finite[[0, 1, 2, 3, 6, 7]].all()) if swapped
                     else bool(finite.all() and torch.isfinite(dp).all()))
-        print(f"kernel check loss_sums {shape}: fwd max_abs_err {fwd_err:.6g} (max |sum| "
+        path = ("flat stream" if ls._vector_path(p2, g2, p2.stride(0), g2.stride(0))
+                else "pixel stride")
+        print(f"kernel check loss_sums {shape} ({path}): fwd max_abs_err {fwd_err:.6g} (max |sum| "
               f"{ref.nan_to_num().abs().max().item():.6g}), dp max_abs_err {dp_err:.6g} (max "
               f"|dp| {dp_ref.nan_to_num().abs().max().item():.6g}), dg max_abs_err {dg_err:.6g} "
               f"(max |dg| {dg_ref.abs().max().item():.6g}), elementwise rtol {LS_GRAD_RTOL} atol "
               f"{LS_GRAD_ATOL}, count row exact {exact_count}, "
-              f"{'NaN as the plain version' if swapped else 'finite'} {nan_rows}", flush=True)
-        if not (fwd_ok and bwd_ok and exact_count and nan_rows):
+              f"{'NaN as the plain version' if swapped else 'finite'} {nan_rows}, repeat "
+              f"launches bitwise equal {same}", flush=True)
+        if not (fwd_ok and bwd_ok and exact_count and nan_rows and same):
             raise AssertionError(f"loss-sums kernels disagree with their plain versions at {shape}")
-        if shape not in LOSS_SUMS_SHAPES[:2]:
-            continue
-        need_dp = C > 1
+        errs[shape] = (fwd_err, dp_err, dg_err)
+        del p2, g2, cot, dp, dg, dp1, dg1, dp_ref, dg_ref
+
+    times = time_loss_sums(ls, card)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for idx, grad in LOSS_SUMS_TIMED:
+        shape = LOSS_SUMS_SHAPES[idx]
+        B, H, W, C, _ = shape
+        p2, g2, cot = _loss_sums_inputs(shape, gen)
         elems = B * H * W * C
-        fwd_ms = _time_ms(lambda: ls.loss_sums_cuda(p2, g2))
         fwd_plain = _time_ms(lambda: ls._sums_reference(p2.T, g2.T), iters=5)
-        bwd_ms = _time_ms(lambda: ls.loss_sums_bwd_cuda(p2, g2, cot, need_dp, not need_dp))
         bwd_plain = _time_ms(lambda: ls.loss_sums_bwd_reference(p2.T, g2.T, cot), iters=5)
         # bytes: p and g read once, the (8, C) sums or cotangent, one gradient written
         fb, fby = _bound(8 * elems + 8 * C * 4, elems * LS_FWD_OPS_PER_ELEM)
         bb, bby = _bound(12 * elems + 8 * C * 4,
-                         elems * (LS_DP_OPS_PER_ELEM if need_dp else LS_DG_OPS_PER_ELEM))
-        grad = "dp" if need_dp else "dg"
-        print(f"kernel times loss_sums at {shape} [{card}]: fwd {fwd_ms:.4f} ms (plain "
-              f"{fwd_plain:.4f}, bound {fb:.4f} by {fby}), bwd writing {grad} {bwd_ms:.4f} ms "
+                         elems * (LS_DP_OPS_PER_ELEM if grad == "dp" else LS_DG_OPS_PER_ELEM))
+        t = times[shape]
+        print(f"kernel times loss_sums at {shape} [{card}]: fwd {t['fwd']:.4f} ms (plain "
+              f"{fwd_plain:.4f}, bound {fb:.4f} by {fby}), bwd writing {grad} {t['bwd']:.4f} ms "
               f"(plain {bwd_plain:.4f}, both gradients; bound {bb:.4f} by {bby})", flush=True)
-        if shape != LOSS_SUMS_SHAPES[0]:
+        del p2, g2, cot
+        if idx != 0:
             continue
         src = "ecologysemanticsegmentation_torch/ops/csrc/loss_sums.cu"
         tpu = "ecologysemanticsegmentation_tpu/ops/pallas/loss_sums.py"
         report["loss_sums_fwd"] = dict(
             name="loss_sums_fwd", route="cuda", source=src, replaces=f"{tpu}:73",
-            max_abs_err=fwd_err, ms=fwd_ms, plain_ms=fwd_plain, bound_ms=fb, bound_by=fby,
-            library_ms=None)
+            max_abs_err=errs[shape][0], ms=t["fwd"], plain_ms=fwd_plain, bound_ms=fb,
+            bound_by=fby, library_ms=None)
         report["loss_sums_bwd"] = dict(
             name="loss_sums_bwd", route="cuda", source=src, replaces=f"{tpu}:102",
-            max_abs_err=dp_err, ms=bwd_ms, plain_ms=bwd_plain, bound_ms=bb, bound_by=bby,
-            library_ms=None)
+            max_abs_err=errs[shape][1], ms=t["bwd"], plain_ms=bwd_plain, bound_ms=bb,
+            bound_by=bby, library_ms=None)
     return report
 
 
 # Broken copies of the loss-sums backward, each one term wrong: (name, the
 # kernel's text, its replacement).
 LOSS_SUMS_MUTANTS = [
-    ("dp drops row 1", "const float d = w[1 * C] + ", "const float d = "),
-    ("dp drops row 6", "w[6 * C] * ((pv > 0.f ? 1.f : 0.f) - sgn / (1.f + expf(fabsf(pv))))",
-     "0.f"),
-    ("dp flips the sign of row 6's softplus part", "- sgn / (1.f + expf", "+ sgn / (1.f + expf"),
-    ("dp flips the sign of row 4's log part", "- kGamma * somp * logf(pv + kEps)",
-     "+ kGamma * somp * logf(pv + kEps)"),
-    ("dg drops row 3", "(wk[0 * C + c] + wk[3 * C + c] * pv) * msk", "wk[0 * C + c] * msk"),
+    ("dp drops row 1", "float d = fmaf(cf(2, s), p, cf(1, s));", "float d = cf(2, s) * p;"),
+    ("dp drops row 6", "d = fmaf(cf(8, s), p > 0.f ? sigmoid01(p) : 0.f, d);", ""),
+    ("dp flips the sign of row 6's softplus part", "p > 0.f ? sigmoid01(p) : 0.f",
+     "p > 0.f ? 2.f - sigmoid01(p) : 0.f"),
+    ("dp flips the sign of row 4's log part", "case 5: return -kGammaLn2 * k[4 * C + c];",
+     "case 5: return kGammaLn2 * k[4 * C + c];"),
+    ("dg drops row 3", "return fmaf(cf(3, s), p, cf(0, s)) * (graw", "return cf(0, s) * (graw"),
+    ("the pixel-stride path writes each channel's dp to the next channel",
+     "if (want_dp) dp[i * C + c] = dp_elem(pv, graw, cw, c);",
+     "if (want_dp) dp[i * C + (c + 1) % C] = dp_elem(pv, graw, cw, c);"),
 ]
 
 
@@ -709,7 +819,8 @@ def check_mutants() -> None:
     """Build every ``LOSS_SUMS_MUTANTS`` and ``HEAD_LOSS_MUTANTS`` copy of
     the kernel sources (one nvcc each, all together) and run phase 3's
     gradient checks on each: the loss sums at the sequential step's C = 3
-    and swapped C = 1 calls, the head loss unsharded (batch 16 at the main
+    and swapped C = 1 calls and at a ragged tail (read through the pixel
+    stride), the head loss unsharded (batch 16 at the main
     path's 64 -> 256 px, C = 3) and on the second row block of a 2-way
     split at 512 px.  The checks must pass the kernels as written and
     refuse every mutant.  The max-scaled check (an error of 1e-4 of the
@@ -727,7 +838,7 @@ def check_mutants() -> None:
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     cases = [_loss_sums_inputs(shape, gen) + (shape[4],)
-             for shape in (LOSS_SUMS_SHAPES[0], LOSS_SUMS_SHAPES[2])]
+             for shape in (LOSS_SUMS_SHAPES[0], LOSS_SUMS_SHAPES[2], LOSS_SUMS_SHAPES[4])]
     refs = [tuple(t.T for t in ls.loss_sums_bwd_reference(p.T, g.T, cot))
             for p, g, cot, _ in cases]
 
@@ -1312,6 +1423,16 @@ def main() -> int:
     if not (ROOT / "ecologysemanticsegmentation_torch" / "ops" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--loss-sums-times"] and len(sys.argv) <= 3:
+        tree = Path(sys.argv[2]).resolve() if len(sys.argv) == 3 else ROOT
+        sys.path.insert(0, str(tree))
+        from ecologysemanticsegmentation_torch.ops import loss_sums
+        card = _card()
+        print(f"device: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; the "
+              f"loss-sums kernels of {tree}", flush=True)
+        loss_sums.library()
+        time_loss_sums(loss_sums, card)
+        return 0
     sys.path.insert(0, str(ROOT))
     from ecologysemanticsegmentation_torch.ops import _build, clahe_tiled, head_loss, loss_sums
 
@@ -1335,8 +1456,8 @@ def main() -> int:
         print(f"build {name}: {info['seconds']:.2f} s", flush=True)
         for entry, usage in _ptxas_usage(info["log"]):
             print(f"  ptxas {entry}: {usage}", flush=True)
-            if entry in ("head_fwd_kernel<3>", "head_bwd_kernel<3>") and _spills(usage):
-                raise AssertionError(f"{entry} spills registers at the main path's C = 3")
+            if entry in NO_SPILL and _spills(usage):
+                raise AssertionError(f"{entry} spills registers at a main path's C")
     print(f"build: {time.perf_counter() - t0:.2f} s wall", flush=True)
     # Phase 3: kernels against their plain versions.
     report = check_kernels(card)

@@ -6,9 +6,12 @@ Rows: Σg, Σp, Σp², Σgp, Σ(1−p)^1.5·log(p+ε), Σp^1.5·log(1−p+ε),
 Σ max(p,0)+log1p(e^−|p|), and the count of non-ignored pixels.
 
 On CUDA tensors :func:`loss_sums_nhwc` and :func:`fused_loss_sums` launch
-the hand-written kernels of ``csrc/loss_sums.cu`` (forward sums; backward
-one elementwise pass writing dp and dg), which read NHWC in place.  On CPU
-tensors they run the plain versions kept here, :func:`_sums_reference` and
+the hand-written kernels of ``csrc/loss_sums.cu`` (forward sums, one launch
+with its final sum; backward one elementwise pass writing dp and dg), which
+read NHWC in place: contiguous inputs as one flat stream of 16-byte loads,
+any other (a channel slice, an odd storage offset) through the pixel
+stride; :func:`_vector_path` decides.  On CPU tensors they run the plain
+versions kept here, :func:`_sums_reference` and
 :func:`loss_sums_bwd_reference`.  Any other device raises.
 
 :func:`loss_sums_nhwc_spatial` is the row- and batch-partitioned form (the
@@ -23,6 +26,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 
 import torch
 
@@ -33,7 +37,6 @@ EPS = 1e-7
 GAMMA = 1.5
 NUM_SUMS = 8  # 7 sums + element count
 MAX_CHANNELS = 16
-PIX_PER_BLOCK = 4096  # pixels per forward block (16 per thread)
 
 # Kernel launches on the main path, one per forward and one per backward.
 launches = {"loss_sums_fwd": 0, "loss_sums_bwd": 0}
@@ -42,8 +45,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    "loss_sums_fwd": [_P, _P, _L, _L, _L, _I, _L, _P, _P],
-    "loss_sums_bwd": [_P, _P, _L, _L, _L, _I, _P, _P, _P, _P],
+    "loss_sums_wave": [_I, _I],
+    "loss_sums_fwd": [_P, _P, _L, _L, _L, _I, _I, _P, _L, _P, _P, _P],
+    "loss_sums_bwd": [_P, _P, _L, _L, _L, _I, _I, _P, _P, _P, _P],
 }
 
 
@@ -130,12 +134,37 @@ def _rows(t: torch.Tensor) -> tuple[torch.Tensor, int]:
     return t.contiguous(), t.shape[1]
 
 
+def _vector_path(p: torch.Tensor, g: torch.Tensor, sp: int, sg: int) -> bool:
+    """Whether the kernels read (N, C) ``p`` and ``g`` (pixel strides ``sp``,
+    ``sg``) as one flat stream of float4: both hold their pixels contiguous
+    and start on a 16-byte boundary.  Otherwise they take the pixel-stride
+    path (a channel slice of a wider tensor, an odd storage offset)."""
+    c = p.shape[1]
+    return sp == c and sg == c and p.data_ptr() % 16 == 0 and g.data_ptr() % 16 == 0
+
+
 def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
     return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def _stream(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+@functools.lru_cache(maxsize=8)
+def _ticket(device: torch.device) -> torch.Tensor:
+    """The forward's finished-block counter on ``device``: 0 between launches."""
+    return torch.zeros(1, dtype=torch.int32, device=device)
+
+
+@functools.lru_cache(maxsize=64)
+def _partials(device: torch.device, c: int) -> torch.Tensor:
+    """Room for one (8, C) partial per block of one wave of the forward."""
+    with torch.cuda.device(device):
+        blocks = library().loss_sums_wave(c, 0)
+    if blocks <= 0:
+        raise RuntimeError(f"loss_sums_wave: no occupancy for C = {c} on {device}")
+    return torch.empty((blocks, NUM_SUMS, c), dtype=torch.float32, device=device)
 
 
 def _check_cuda(p: torch.Tensor, g: torch.Tensor) -> None:
@@ -145,20 +174,22 @@ def _check_cuda(p: torch.Tensor, g: torch.Tensor) -> None:
 
 
 def loss_sums_cuda(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """Forward kernel on (N, C) inputs: (8, C) f32 sums.  Per-block partials
-    are summed here in a fixed order (deterministic; no float atomics)."""
+    """Forward kernel on (N, C) inputs: (8, C) f32 sums, in one launch (its
+    last block adds the per-block partials in a fixed order: deterministic,
+    no float atomics)."""
     _check_cuda(p, g)
     n, c = p.shape
     p, sp = _rows(p)
     g, sg = _rows(g)
-    nblk = -(-n // PIX_PER_BLOCK)
-    partials = torch.empty((nblk, NUM_SUMS, c), dtype=torch.float32, device=p.device)
-    rc = library().loss_sums_fwd(_ptr(p), _ptr(g), sp, sg, n, c, PIX_PER_BLOCK,
-                                 _ptr(partials), _stream(p.device))
+    partials = _partials(p.device, c)
+    sums = torch.empty((NUM_SUMS, c), dtype=torch.float32, device=p.device)
+    rc = library().loss_sums_fwd(_ptr(p), _ptr(g), sp, sg, n, c, int(_vector_path(p, g, sp, sg)),
+                                 _ptr(partials), partials.shape[0], _ptr(_ticket(p.device)),
+                                 _ptr(sums), _stream(p.device))
     if rc != 0:
         raise RuntimeError(f"loss_sums_fwd: launch failed with cudaError_t {rc}")
     launches["loss_sums_fwd"] += 1
-    return partials.sum(0)
+    return sums
 
 
 def loss_sums_bwd_cuda(p: torch.Tensor, g: torch.Tensor, cot: torch.Tensor,
@@ -177,7 +208,8 @@ def loss_sums_bwd_cuda(p: torch.Tensor, g: torch.Tensor, cot: torch.Tensor,
         raise ValueError(f"cotangent must be ({NUM_SUMS}, {c}), got {tuple(k.shape)}")
     dp = torch.empty((n, c), dtype=torch.float32, device=p.device) if need_dp else None
     dg = torch.empty((n, c), dtype=torch.float32, device=p.device) if need_dg else None
-    rc = library().loss_sums_bwd(_ptr(p), _ptr(g), sp, sg, n, c, _ptr(k), _ptr(dp), _ptr(dg),
+    rc = library().loss_sums_bwd(_ptr(p), _ptr(g), sp, sg, n, c,
+                                 int(_vector_path(p, g, sp, sg)), _ptr(k), _ptr(dp), _ptr(dg),
                                  _stream(p.device))
     if rc != 0:
         raise RuntimeError(f"loss_sums_bwd: launch failed with cudaError_t {rc}")

@@ -154,3 +154,24 @@ def test_wrapper_rejects(bad, err):
     with pytest.raises(err):
         a, b = bad(p, g)
         tls.loss_sums_nhwc(a.T, b.T)
+
+
+def test_wrapper_path_choice():
+    """The kernels read contiguous inputs that start on a 16-byte boundary
+    as one flat stream of float4, and anything else through the pixel
+    stride; the wrapper decides from the strides and the pointers."""
+    def path(p, g):
+        (p, sp), (g, sg) = tls._rows(p), tls._rows(g)
+        return tls._vector_path(p, g, sp, sg)
+
+    wide = torch.rand(64, 4)
+    flat = torch.rand(64 * 3 + 4)
+    for c in (1, 3, 11):
+        x = torch.rand(50, c)
+        assert path(x, torch.ones(50, c))                          # contiguous
+        assert path(torch.rand(c, 50).T, x)                        # copied to pixel-major
+        odd = torch.rand(50 * c + 1)[1:].view(50, c)               # 4 bytes off 16
+        assert not path(odd, x) and not path(x, odd)
+    assert path(flat[4:4 + 64 * 3].view(64, 3), torch.ones(64, 3))  # 16 bytes in: aligned
+    assert not path(wide[:, 1:2], torch.ones(64, 1))               # channel slice, stride 4
+    assert not path(wide[:, :3], torch.ones(64, 3))                # pixel stride 4, not 3

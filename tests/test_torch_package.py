@@ -208,29 +208,61 @@ def test_cuda_clahe_kernel_matches_plain(cuda, b, h, w, bins, tiles):
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
 
 
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s bits, for equality that holds NaN equal to itself."""
+    return t.contiguous().view(torch.int32)
+
+
+def _grad_leaf(a: np.ndarray, device, offset: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """A leaf that requires grad and a view of ``a``'s values in it,
+    ``offset`` elements into its storage (1: not 16-byte aligned)."""
+    base = torch.zeros(a.size + offset, dtype=torch.float32, device=device)
+    base[offset:] = torch.from_numpy(a.reshape(-1)).to(device)
+    base.requires_grad_()
+    return base, base[offset:].view(a.shape)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape,sl,swapped", [
-    ((2, 16, 16, 3), None, False), ((3, 9, 11, 1), None, False),
-    ((1, 33, 35, 11), None, False), ((2, 8, 8, 3), slice(1, 2), False),
-    ((1, 64, 64, 16), None, False), ((3, 9, 11, 1), None, True),
+@pytest.mark.parametrize("shape,sl,swapped,variant", [
+    ((2, 16, 16, 3), None, False, None), ((3, 9, 11, 1), None, False, None),
+    ((1, 33, 35, 11), None, False, None), ((2, 8, 8, 3), slice(1, 2), False, None),
+    ((1, 64, 64, 16), None, False, None), ((3, 9, 11, 1), None, True, None),
+    ((2, 16, 16, 3), None, False, "edges"),     # p exactly 0 and 1 under labels 0 and 1
+    ((3, 9, 11, 1), None, True, "edges"),       # the same in the swapped call's g slot
+    ((2, 16, 17, 3), None, False, "offset"),    # storage offset: not 16-byte aligned
+    ((2, 16, 16, 1), None, True, "offset"),
+    ((3, 9, 11, 3), None, False, None),         # N * C not a multiple of the vector group
+    ((1, 37, 29, 16), None, False, None),       # the same at C = 16
+    ((8, 512, 512, 3), None, False, None),      # more than one pass of the one-wave grid
+    ((4, 512, 512, 1), None, True, None),
 ])
-def test_cuda_loss_sums_kernels_match_plain(cuda, shape, sl, swapped):
+def test_cuda_loss_sums_kernels_match_plain(cuda, shape, sl, swapped, variant):
     """Sums at rtol 1e-4 (f32 sums in another order), the count row
     exactly; dp and dg element by element at rtol 1e-4, atol 1e-5 (the same
-    f32 operations per element, the kernel's FMAs a few ulps apart).
-    ``swapped`` is the single-organ call: {-1, 0, 1} labels in the p slot,
-    so rows 4-5 and dp are NaN at a -1 label in both, and dg stays finite."""
+    function per element, the kernel's FMAs and approximate transcendentals
+    a few ulps apart).  ``swapped`` is the single-organ call: {-1, 0, 1}
+    labels in the p slot, so rows 4-5 and dp are NaN at a -1 label in both,
+    and dg stays finite.  Contiguous aligned inputs take the flat stream,
+    the others the pixel stride; each kernel's second launch is bitwise
+    equal to its first."""
     rs = np.random.RandomState(0)
     g = (rs.rand(*shape) > 0.5).astype(np.float32)
     g[rs.rand(*shape) < 0.05] = -1.0
     p = rs.rand(*shape).astype(np.float32)
+    if variant == "edges":
+        p.reshape(-1)[::5] = 0.0
+        p.reshape(-1)[1::5] = 1.0
     if swapped:
         p, g = g, p
-    pf = torch.tensor(p, device=cuda, requires_grad=True)
-    gf = torch.tensor(g, device=cuda, requires_grad=True)
+    offset = 1 if variant == "offset" else 0
+    pbase, pf = _grad_leaf(p, cuda, offset)
+    gbase, gf = _grad_leaf(g, cuda, offset)
     sl = slice(None) if sl is None else sl
     p, g = pf[..., sl], gf[..., sl]  # a slice is read in place, through its pixel stride
     c = p.shape[-1]
+    rows = [tls._rows(t.detach().reshape(-1, c)) for t in (p, g)]
+    assert tls._vector_path(rows[0][0], rows[1][0], rows[0][1], rows[1][1]) == (
+        variant != "offset" and sl == slice(None))
     cot = torch.tensor(rs.randn(8, c), dtype=torch.float32, device=cuda)
     before = dict(tls.launches)
     sums = tls.loss_sums_nhwc(p, g)
@@ -245,7 +277,16 @@ def test_cuda_loss_sums_kernels_match_plain(cuda, shape, sl, swapped):
     torch.testing.assert_close(sums, ref, rtol=1e-4, atol=1e-3, equal_nan=swapped)
     assert torch.equal(sums[7], (g >= 0).reshape(-1, c).sum(0).float())
     assert torch.isnan(ref[4:6]).all() == swapped and torch.isfinite(ref[[0, 1, 2, 3, 6, 7]]).all()
-    torch.testing.assert_close(pf.grad[..., sl].reshape(-1, c).T, dref, rtol=1e-4, atol=1e-5,
-                               equal_nan=swapped)
-    torch.testing.assert_close(gf.grad[..., sl].reshape(-1, c).T, gref, rtol=1e-4, atol=1e-5)
-    assert torch.isfinite(gf.grad).all()
+    assert torch.equal(torch.isnan(sums), torch.isnan(ref))
+    dp = pbase.grad[offset:].view(pf.shape)[..., sl].reshape(-1, c).T
+    dg = gbase.grad[offset:].view(gf.shape)[..., sl].reshape(-1, c).T
+    torch.testing.assert_close(dp, dref, rtol=1e-4, atol=1e-5, equal_nan=swapped)
+    torch.testing.assert_close(dg, gref, rtol=1e-4, atol=1e-5)
+    assert torch.equal(torch.isnan(dp), torch.isnan(dref))
+    assert torch.isfinite(gbase.grad).all()
+    # repeat launches are bitwise equal, NaN included
+    assert torch.equal(_bits(tls.loss_sums_nhwc(p, g)), _bits(sums))
+    dp1, dg1 = tls.loss_sums_bwd_cuda(p.reshape(-1, c), g.reshape(-1, c), cot)
+    dp2, dg2 = tls.loss_sums_bwd_cuda(p.reshape(-1, c), g.reshape(-1, c), cot)
+    assert torch.equal(_bits(dp1), _bits(dp2)) and torch.equal(_bits(dg1), _bits(dg2))
+    assert torch.equal(_bits(dp1.T), _bits(dp))
