@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # from the root of a checkout
     python3 chip_smoke.py --mutants  # only: the gradient checks against broken kernels
     python3 chip_smoke.py --loss-sums-times [TREE]  # only: the loss-sums kernels' times
+    python3 chip_smoke.py --clahe-times [TREE]      # only: the tiled-CLAHE apply's times
 
 Phases, each fatal on failure (an exception ends the run with a non-zero
 exit code before the result line is printed):
@@ -13,7 +14,7 @@ exit code before the result line is printed):
    ``ecologysemanticsegmentation_torch/ops/csrc`` with nvcc, one process per
    source, all started together; each kernel's registers and spills (the
    head-loss kernels must not spill at C = 3, the loss-sums kernels at
-   C = 1 and 3);
+   C = 1 and 3, the tiled-CLAHE kernel, which takes K at run time);
 3. kernels: every kernel against its plain PyTorch version on the card at the
    main paths' shapes and at the other shapes it serves, with its time, the
    plain version's time and its bound (the head loss also at 512, 768 and
@@ -31,7 +32,13 @@ exit code before the result line is printed):
    spatial sequential step's per-shard call, their gradients element by
    element, each kernel launched twice and bitwise equal, each call's
    backward timed writing the gradient its path asks for, and a cold time
-   beside the warm one at the main shape);
+   beside the warm one at the main shape; the tiled-CLAHE apply, one
+   launch from the tile deltas, against its plain version at five shapes
+   (one whose width is not a multiple of 4), with edge luminances (0,
+   exactly 1, above 1, below 0, NaN, the bin edges), a second launch bitwise
+   equal, and at the main shape the function timed warm, cold, as the host
+   enqueues it and in a CUDA graph, beside the device time of the
+   augmentation's whole tiled and global CLAHE ops);
    device augmentation on the card against the same draws on the CPU, in
    both CLAHE forms; a small batch of the unaugmented step on the card
    against the step on the CPU (plain versions), for the flagship
@@ -78,16 +85,28 @@ Without a CUDA device, or without the rest of the repository beside it, the
 script exits non-zero and prints no result.
 
 ``--mutants`` builds copies of ``csrc/loss_sums.cu`` with one term of the
-backward, or its pixel-stride path, broken each, and of
-``csrc/head_loss.cu`` with a band edge or a column tap of the backward
-broken (under the gitignored ``ops/build/mutants/``), and shows that phase
-3's element-wise gradient checks refuse every one and pass the kernels as
-written; it prints the looser max-scaled check's verdict beside.
+backward, or its pixel-stride path, broken each, of ``csrc/head_loss.cu``
+with a band edge or a column tap of the backward broken, and of
+``csrc/clahe_tiled.cu`` with the x interpolation's hi tap dropped, an
+exclusive prefix over K, the bin not clamped at K - 1, or the gate for
+l < 0 and NaN gone (under the gitignored ``ops/build/mutants/``), and
+shows that phase 3's element-wise checks refuse every one and pass the
+kernels as written; it prints the looser max-scaled check's verdict
+beside.
 
 ``--loss-sums-times [TREE]`` only times the loss-sums kernels as phase 3
 does (warm at every timed call, cold at the main shape), with the package of
 the checkout at TREE (this one by default), so that two trees' kernels can
 be timed in turns on one card.
+
+``--clahe-times [TREE]`` only times the tiled-CLAHE apply of the checkout
+at TREE as phase 3 does (the function as the augmentation calls it, warm,
+cold, host enqueue and in a CUDA graph; the augmentation's tiled and
+global CLAHE ops); a tree whose apply goes through an x-contracted Gx
+plane also has its einsum and its kernel timed alone, and this tree's
+kernel is also timed with its LUT laid out [tile][j] instead of [j][tile]
+and as its stream alone (no lookups), beside a plain copy of the same
+luminance.
 """
 
 from __future__ import annotations
@@ -146,14 +165,20 @@ SHAPES = [
 # at the main path's pixels per batch.
 TIMED = {SHAPES[0], SHAPES[6], SHAPES[7], SHAPES[8]}
 
-# Tiled CLAHE (B, H, W, tiles, bins): the main path's shape first.
+# Tiled CLAHE (B, H, W, tiles, bins): the main path's shape first; the last
+# has a width that is not a multiple of 4 (the kernel's scalar path).
 CLAHE_SHAPES = [
     (128, 256, 256, 8, 64),
     (128, 256, 256, 8, 32),
     (1, 512, 512, 8, 64),
     (4, 192, 320, 8, 64),
+    (2, 97, 101, 8, 64),
 ]
-CLAHE_ATOL = 1e-5   # f32 sums of <= K + 2 terms of magnitude <= 1, in another order
+CLAHE_ATOL = 1e-5   # f32 sums of <= K + 4 terms of magnitude <= 1, in another order
+# Operations a pixel of the tiled-CLAHE apply: the bin index (mul, floor),
+# the two x taps of two tile rows (2 x (2 mul + add)) and the two y taps
+# (2 mul + add).
+CLAHE_OPS_PER_PIXEL = 2 + 6 + 3
 # Loss sums (B, H, W, C, swapped): the sequential step's C = 3 call (the
 # main call of every full-resolution path) and its C = 1 cross term, then
 # the single-organ step's call as it is made (swapped: {-1, 0, 1} labels in
@@ -191,8 +216,10 @@ STEP_RTOL = 3e-2    # bf16 autocast on the card against the f32 step on the CPU
 
 
 # Kernels that must not spill registers: the main paths' channel counts.
+# The tiled-CLAHE kernel takes K at run time: one entry serves K = 64.
 NO_SPILL = ("head_fwd_kernel<3>", "head_bwd_kernel<3>", "loss_sums_fwd_kernel<1>",
-            "loss_sums_fwd_kernel<3>", "loss_sums_bwd_kernel<1>", "loss_sums_bwd_kernel<3>")
+            "loss_sums_fwd_kernel<3>", "loss_sums_bwd_kernel<1>", "loss_sums_bwd_kernel<3>",
+            "clahe_apply_kernel")
 
 
 def _card() -> str:
@@ -505,22 +532,123 @@ def check_shard_kernels(card: str) -> dict:
 
 
 def _clahe_inputs(shape, gen):
-    """Luminance in [0, 1] and per-tile CDF steps of random histograms."""
+    """Luminance in [0, 1] with every 97th pixel set, in turn, to 0, exactly
+    1, just above 1, above the last bin by more than a bin (1.1, whose
+    unclamped bin stays inside the kernel's shared memory), just below 0,
+    NaN and the bin edges k / (K - 1); per-tile CDF steps of random
+    histograms."""
     import torch
 
     B, H, W, T, K = shape
     luma = torch.rand((B, H, W), generator=gen, device="cuda")
+    edges = torch.tensor([0.0, 1.0, 1 + 1e-3, 1.1, -1e-3, math.nan]
+                         + [k / (K - 1) for k in range(K)], device="cuda")
+    flat = luma.view(-1)
+    n = flat[::97].numel()
+    flat[::97] = edges.repeat(-(-n // edges.numel()))[:n]
     hist = torch.rand((B, T, T, K), generator=gen, device="cuda") + 0.1
     cdf = torch.cumsum(hist, -1)
     cdf = cdf / cdf[..., -1:]
     return luma, torch.diff(cdf, dim=-1, prepend=torch.zeros_like(cdf[..., :1]))
 
 
+def _clahe_ok(ct, luma, deltas, T, want) -> tuple[bool, float]:
+    """Phase 3's check of the tiled-CLAHE kernel: every value within
+    ``CLAHE_ATOL`` of the plain version's (NaN fails), and a second launch
+    bitwise equal to the first."""
+    import torch
+
+    got = ct.tiled_clahe_new_luma(luma, deltas, T)
+    again = ct.tiled_clahe_new_luma(luma, deltas, T)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    return bool(err <= CLAHE_ATOL and torch.equal(got, again)), err
+
+
+def _parent_route(ct) -> bool:
+    """Whether module ``ct`` (another tree's) applies the tiled CLAHE through
+    an x-contracted Gx plane: ``apply_cuda(luma, gx, tiles)``."""
+    import inspect
+
+    return "gx" in inspect.signature(ct.apply_cuda).parameters
+
+
+def time_clahe(ct, card: str, variants: bool = False) -> dict:
+    """Times of module ``ct``'s (this tree's, or another tree's: the
+    function keeps its signature) ``tiled_clahe_new_luma`` at the main
+    path's shape, as the augmentation calls it: warm, cold (after a write
+    larger than the L2), the host's enqueue time and the device time in a
+    CUDA graph.  A tree that goes through Gx also has its einsum and its
+    kernel timed alone.  With ``variants``, this tree's kernel is also built
+    and timed as each of ``CLAHE_VARIANTS``, beside a plain copy of the
+    same luminance (``clone``: the bytes read and written, no work).  Then the
+    device time (in a CUDA graph) of the augmentation's whole tiled and
+    global CLAHE ops on a bf16 batch of that shape."""
+    import torch
+
+    from ecologysemanticsegmentation_torch.data import augment as aug
+
+    B, H, W, T, K = CLAHE_SHAPES[0]
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    luma, deltas = _clahe_inputs(CLAHE_SHAPES[0], gen)
+    tree = Path(ct.__file__).parents[2].name
+
+    def fn():
+        return ct.tiled_clahe_new_luma(luma, deltas, T)
+
+    t = {"ms": _time_ms(fn), "cold": _time_cold_ms(fn), "host": _time_host_ms(fn),
+         "graph": _time_graph_ms(fn)}
+    print(f"clahe_tiled times at {CLAHE_SHAPES[0]} [{card}] ({tree}): the function "
+          f"{t['ms']:.4f} ms warm, {t['cold']:.4f} cold (L2 flushed by a 256 MiB write before "
+          f"each call), host enqueue {t['host']:.4f}, in a CUDA graph {t['graph']:.4f}",
+          flush=True)
+    if _parent_route(ct):
+        wx = ct._weights(W, T, luma.device)
+        gx = torch.einsum("btsk,xs->bktx", deltas, wx)
+        t["einsum"] = _time_ms(lambda: torch.einsum("btsk,xs->bktx", deltas, wx))
+        t["einsum_graph"] = _time_graph_ms(lambda: torch.einsum("btsk,xs->bktx", deltas, wx))
+        t["kernel"] = _time_ms(lambda: ct.apply_cuda(luma, gx, T))
+        t["kernel_graph"] = _time_graph_ms(lambda: ct.apply_cuda(luma, gx, T))
+        t["kernel_cold"] = _time_cold_ms(lambda: ct.apply_cuda(luma, gx, T))
+        print(f"clahe_tiled times at {CLAHE_SHAPES[0]} [{card}] ({tree}): its Gx einsum "
+              f"{t['einsum']:.4f} ms warm (in a CUDA graph {t['einsum_graph']:.4f}), its kernel "
+              f"on Gx {t['kernel']:.4f} warm, {t['kernel_cold']:.4f} cold (in a CUDA graph "
+              f"{t['kernel_graph']:.4f})", flush=True)
+        del gx
+    if variants:
+        from ecologysemanticsegmentation_torch.ops import _build
+
+        libs = _load_mutants(_start_mutants("clahe_tiled", CLAHE_VARIANTS), ct._SIGNATURES)
+        saved = _build._loaded.get("clahe_tiled")
+        try:
+            for what, cdll in libs:
+                _build._loaded["clahe_tiled"] = cdll
+                t[what] = _time_graph_ms(fn)
+                print(f"clahe_tiled kernel variant at {CLAHE_SHAPES[0]} [{card}]: {what} "
+                      f"{_time_ms(fn):.4f} ms warm, in a CUDA graph {t[what]:.4f}", flush=True)
+        finally:
+            _build._loaded["clahe_tiled"] = saved
+        t["clone"] = _time_graph_ms(lambda: luma.clone())
+        print(f"a plain copy of the luminance (clone) at {CLAHE_SHAPES[0]} [{card}]: "
+              f"{_time_ms(lambda: luma.clone()):.4f} ms warm, in a CUDA graph "
+              f"{t['clone']:.4f}", flush=True)
+    x = torch.rand((B, H, W, 3), generator=gen, device="cuda").to(torch.bfloat16)
+    clip = torch.rand((B,), generator=gen, device="cuda") * 3.0 + 1.0
+    t["op_tiled"] = _time_graph_ms(lambda: aug._clahe_tiled(x, clip))
+    t["op_global"] = _time_graph_ms(lambda: aug._clahe(x, clip))
+    print(f"clahe ops at {(B, H, W, 3)} bf16 [{card}] ({tree}), device time in a CUDA graph: "
+          f"tiled (histograms, clip, CDF, apply, scale) {t['op_tiled']:.4f} ms, global "
+          f"{t['op_global']:.4f} ms", flush=True)
+    return t
+
+
 def check_clahe(card: str) -> dict:
-    """Phase 3: the tiled-CLAHE kernel against its plain version at every
-    shape; its time, the plain version's and the bound at the main path's.
-    The wrapper's x pre-contraction (an einsum) runs outside the timed
-    kernel, as in the JAX package."""
+    """Phase 3: the tiled-CLAHE function on the card (one kernel launch from
+    the deltas) against its plain version (the x contraction, then the
+    gated per-bin planes) at every shape, with edge luminances, a second
+    launch bitwise equal; at the main path's shape its times
+    (:func:`time_clahe`), the plain version's and the function's byte
+    bound."""
     import torch
 
     from ecologysemanticsegmentation_torch.ops import clahe_tiled as ct
@@ -530,32 +658,34 @@ def check_clahe(card: str) -> dict:
     for shape in CLAHE_SHAPES:
         B, H, W, T, K = shape
         luma, deltas = _clahe_inputs(shape, gen)
-        wx, wy = ct._weights(W, T, luma.device), ct._weights(H, T, luma.device)
-        gx = torch.einsum("btsk,xs->bktx", deltas, wx)
-        got = ct.apply_cuda(luma, gx, T)
-        want = ct._apply_reference(luma, gx, wy)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        print(f"kernel check clahe_tiled {shape}: max_abs_err {err:.6g} (max |out| "
-              f"{want.abs().max().item():.6g}, atol {CLAHE_ATOL})", flush=True)
-        if not (err <= CLAHE_ATOL and torch.isfinite(got).all()):
-            raise AssertionError(f"tiled-CLAHE kernel disagrees with its plain version at {shape}")
+        want = ct.reference(luma, deltas, T)
+        ok, err = _clahe_ok(ct, luma, deltas, T, want)
+        print(f"kernel check clahe_tiled {shape} (launch plan: {ct._plan(B, H, T, K)} rows per "
+              f"band and tile rows): max_abs_err {err:.6g} (max |out| "
+              f"{want.abs().max().item():.6g}, atol {CLAHE_ATOL}), repeat launches bitwise "
+              f"equal", flush=True)
+        if not ok:
+            raise AssertionError(f"tiled-CLAHE kernel disagrees with its plain version at {shape}, "
+                                 f"or a repeat launch differs")
         if shape != CLAHE_SHAPES[0]:
             continue
-        ms = _time_ms(lambda: ct.apply_cuda(luma, gx, T))
-        plain_ms = _time_ms(lambda: ct._apply_reference(luma, gx, wy), iters=5)
-        # bytes: luma in, Gx in, out; operations: the two-tap form's
-        # 2 taps x K bins x (mul + add) and the bin index (mul + floor)
-        nbytes = (luma.numel() * 2 + gx.numel() + 2 * H) * 4 + 2 * H * 4
-        bound, by = _bound(nbytes, B * H * W * (2 * 2 * K + 2))
+        plain_ms = _time_ms(lambda: ct.reference(luma, deltas, T), iters=5)
+        del want
+        t = time_clahe(ct, card)
+        # bytes: luma in, the deltas in, out, and the two axes' tap tables;
+        # beside it the bound of the JAX package's kernel operands (luma, Gx, out)
+        nbytes = (2 * luma.numel() + deltas.numel() + 4 * (H + W)) * 4
+        bound, by = _bound(nbytes, B * H * W * CLAHE_OPS_PER_PIXEL)
+        gx_bound, _ = _bound((2 * luma.numel() + B * K * T * W) * 4, 0)
         report["clahe_tiled"] = dict(
             name="clahe_tiled", route="cuda",
             source="ecologysemanticsegmentation_torch/ops/csrc/clahe_tiled.cu",
             replaces="ecologysemanticsegmentation_tpu/ops/pallas/clahe_tiled.py:109",
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+            max_abs_err=err, ms=t["ms"], plain_ms=plain_ms, bound_ms=bound, bound_by=by,
             library_ms=None)
-        print(f"kernel times clahe_tiled at {shape} [{card}]: {ms:.4f} ms (plain "
-              f"{plain_ms:.4f}, bound {bound:.4f} by {by})", flush=True)
+        print(f"kernel times clahe_tiled at {shape} [{card}]: {t['ms']:.4f} ms (plain "
+              f"{plain_ms:.4f}, bound {bound:.4f} by {by}; the bound of a kernel that reads a "
+              f"Gx plane instead of the deltas: {gx_bound:.4f})", flush=True)
     return report
 
 
@@ -754,6 +884,32 @@ HEAD_LOSS_MUTANTS = [
 ]
 
 
+# Broken copies of the tiled-CLAHE kernel: (name, the kernel's text, its
+# replacement).  The clamp's mutant reads bins past K - 1 only at the edge
+# luminance 1.1 (:func:`_clahe_inputs`), whose bin stays inside the block's
+# shared memory.
+CLAHE_MUTANTS = [
+    ("the x interpolation drops the hi tap",
+     "return wx_lo * p.x + wx_hi * p.y;", "return wx_lo * p.x;"),
+    ("the prefix over K is exclusive", "v += carry;", "v += carry - own;"),
+    ("j is not clamped at K - 1", "(int)fminf(fmaxf(idx, 0.f), top)", "(int)fmaxf(idx, 0.f)"),
+    ("the gate for l < 0 and NaN is gone", "return idx >= 0.f ? v : 0.f;", "return v;"),
+]
+# Variants of the tiled-CLAHE kernel that --clahe-times times beside it:
+# the other LUT layout ([tile][j], K pairs a tile, for the kernel's [j][tile]
+# with an odd stride), and the stream alone (each pixel's lookups replaced
+# by its luminance: the same loads, stores and launch plan).
+CLAHE_VARIANTS = [
+    ("LUT layout [tile][j]", "return j * sj + ts;", "return ts * K + j;"),
+    ("the stream alone, no lookups",
+     "        r.x = pixel(lut, l.x, top, K, sj, row_lo, row_hi, wy_lo, wy_hi, sl.x, wh.x);\n"
+     "        r.y = pixel(lut, l.y, top, K, sj, row_lo, row_hi, wy_lo, wy_hi, sl.y, wh.y);\n"
+     "        r.z = pixel(lut, l.z, top, K, sj, row_lo, row_hi, wy_lo, wy_hi, sl.z, wh.z);\n"
+     "        r.w = pixel(lut, l.w, top, K, sj, row_lo, row_hi, wy_lo, wy_hi, sl.w, wh.w);\n",
+     "        r = l;\n        (void)sl, (void)wh;\n"),
+]
+
+
 def _start_mutants(name: str, mutants: list) -> list:
     """Write the kernel as written and every mutant of ``csrc/<name>.cu``
     under ``ops/build/mutants/`` and start one nvcc for each."""
@@ -828,13 +984,16 @@ def check_mutants() -> None:
     beside."""
     import torch
 
+    from ecologysemanticsegmentation_torch.ops import clahe_tiled as ct
     from ecologysemanticsegmentation_torch.ops import head_loss as hl
     from ecologysemanticsegmentation_torch.ops import loss_sums as ls
 
     ls_procs = _start_mutants("loss_sums", LOSS_SUMS_MUTANTS)
     hl_procs = _start_mutants("head_loss", HEAD_LOSS_MUTANTS)
+    ct_procs = _start_mutants("clahe_tiled", CLAHE_MUTANTS)
     ls_libs = _load_mutants(ls_procs, ls._SIGNATURES)
     hl_libs = _load_mutants(hl_procs, hl._SIGNATURES)
+    ct_libs = _load_mutants(ct_procs, ct._SIGNATURES)
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     cases = [_loss_sums_inputs(shape, gen) + (shape[4],)
@@ -881,6 +1040,22 @@ def check_mutants() -> None:
         return new_ok, old_ok
 
     _judge_mutants("head_loss", hl_libs, run_head_loss)
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    clahe_cases = []
+    for shape in (CLAHE_SHAPES[0], CLAHE_SHAPES[-1]):
+        luma, deltas = _clahe_inputs(shape, gen)
+        clahe_cases.append((luma, deltas, shape[3], ct.reference(luma, deltas, shape[3])))
+
+    def run_clahe():
+        new_ok = old_ok = True
+        for luma, deltas, T, want in clahe_cases:
+            ok, err = _clahe_ok(ct, luma, deltas, T, want)
+            new_ok &= ok
+            old_ok &= bool(err <= GRAD_RTOL * want.abs().max().item())
+        return new_ok, old_ok
+
+    _judge_mutants("clahe_tiled", ct_libs, run_clahe)
 
 
 def _bf16_ulp(v):
@@ -1432,6 +1607,16 @@ def main() -> int:
               f"loss-sums kernels of {tree}", flush=True)
         loss_sums.library()
         time_loss_sums(loss_sums, card)
+        return 0
+    if sys.argv[1:2] == ["--clahe-times"] and len(sys.argv) <= 3:
+        tree = Path(sys.argv[2]).resolve() if len(sys.argv) == 3 else ROOT
+        sys.path.insert(0, str(tree))
+        from ecologysemanticsegmentation_torch.ops import clahe_tiled
+        card = _card()
+        print(f"device: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; the "
+              f"tiled-CLAHE apply of {tree}", flush=True)
+        clahe_tiled.library()
+        time_clahe(clahe_tiled, card, variants=not _parent_route(clahe_tiled))
         return 0
     sys.path.insert(0, str(ROOT))
     from ecologysemanticsegmentation_torch.ops import _build, clahe_tiled, head_loss, loss_sums

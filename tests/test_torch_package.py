@@ -189,13 +189,21 @@ def test_cuda_shard_kernels_match_plain(cuda, n, c):
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,h,w,bins,tiles", [
     (2, 64, 64, 32, 8), (2, 64, 64, 64, 8), (1, 48, 80, 64, 8), (3, 256, 256, 64, 8),
-    (1, 32, 32, 32, 4), (1, 512, 512, 64, 8),
+    (1, 32, 32, 32, 4), (1, 512, 512, 64, 8), (2, 97, 101, 64, 8), (3, 40, 54, 32, 8),
 ])
 def test_cuda_clahe_kernel_matches_plain(cuda, b, h, w, bins, tiles):
-    """The kernel sums over k before the two y taps, the plain version after
-    them: the same f32 terms in another order, within 1e-5 (values <= 1)."""
+    """One launch from the deltas against the plain version (the x
+    contraction, then the gated per-bin planes): the same f32 terms in
+    another order, within 1e-5 (values <= 1).  Every 7th pixel is an edge
+    luminance (0, exactly 1, just above 1, 1.1, just below 0, NaN, the bin
+    edges k / (K - 1)); below bin 0 and NaN give 0.  Widths 101 and 54 take
+    the kernel's scalar path.  A second launch is bitwise equal."""
     rs = np.random.RandomState(0)
-    luma = torch.tensor(rs.rand(b, h, w), dtype=torch.float32, device=cuda)
+    luma = rs.rand(b, h, w).astype(np.float32)
+    edges = [0.0, 1.0, 1 + 1e-3, 1.1, -1e-3, np.nan] + [k / (bins - 1) for k in range(bins)]
+    flat = luma.reshape(-1)
+    flat[::7] = np.resize(np.asarray(edges, np.float32), flat[::7].shape)
+    luma = torch.tensor(luma, device=cuda)
     hist = rs.rand(b, tiles, tiles, bins) + 0.1
     cdf = np.cumsum(hist, axis=-1)
     cdf /= cdf[..., -1:]
@@ -206,6 +214,9 @@ def test_cuda_clahe_kernel_matches_plain(cuda, b, h, w, bins, tiles):
     assert ct.launches["clahe_tiled"] == before + 1
     want = ct.tiled_clahe_new_luma(luma.cpu(), deltas.cpu(), tiles)
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
+    gated = torch.isnan(luma) | (torch.floor(luma * (bins - 1)) < 0)
+    assert gated.any() and (got[gated] == 0).all()
+    assert torch.equal(ct.tiled_clahe_new_luma(luma, deltas, tiles), got)
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
