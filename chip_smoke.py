@@ -74,13 +74,35 @@ exit code before the result line is printed):
    other kernel's); the loss finite, falling and equal on every rank, and
    the parameters and BN buffers bitwise equal on every rank.  Its ms/step
    and peak memory are of four ranks time-sharing one card with
-   host-staged collectives, not a multi-card figure.
+   host-staged collectives, not a multi-card figure;
+7. the trainer CLI (runs after phase 5, before phase 6):
+   ``ecologysemanticsegmentation_torch.train_multiclass.train`` called as
+   ``python -m`` would call it, ``--dataset synthetic --batch_size 128``,
+   in a temporary directory removed at the end, on the imops backend the
+   machine has (cv2, else PIL, else the port's own; msgpack is never
+   imported: the port packs checkpoints itself): (a) the flagship
+   (``ORGANS=whole_body,ventral_side,dorsal_side IMGSIZE=256``, augmented,
+   global CLAHE) for 12 epochs, one step of 108 images padded to 128 each;
+   (b) the same command resumed to 13 epochs, which must load the epoch-11
+   file and run epoch 12 only; (c) one organ (``ORGANS=whole_body``) for 3
+   epochs.  Counters zeroed just before each run and read just after: the
+   head loss 1 + 1 a step in (a) and (b), the loss sums 1 + 1 a step in
+   (c), no other kernel's.  Checked: the loss of (a) finite and falling; the
+   checkpoints of epochs 0, 10, 11 and 12 at the JAX layout; the epoch-12 file
+   restored by the port's reader into a fresh state equal to the run's,
+   leaf by leaf; every val triplet a readable 256 x 256 PNG; ``metrics.csv``
+   with the JAX CLI's columns.  Printed: each run's wall time, the CLI's
+   images per second by epoch and peak memory, and the CLI's step beside
+   phase 5's augmented step (their difference is the host pipeline's
+   share).
 
 The device time of the step by layer is not measured here:
 ``python3 -m ecologysemanticsegmentation_torch.train.profile_step`` does that.
 
 The line before the last holds the card's name and power limit; the
-``kernels`` JSON line comes before it; the last line is the device result.
+``kernels`` JSON line comes before it (each kernel's ``launches`` in the
+phase 5 or 6 run that exercises it, and its ``cli_launches`` in phase 7);
+the last line is the device result.
 Without a CUDA device, or without the rest of the repository beside it, the
 script exits non-zero and prints no result.
 
@@ -1208,6 +1230,9 @@ def _zero_counters() -> None:
 # Loss-sums calls per step of each full-resolution composite mode run here.
 LOSS_SUMS_CALLS = {"none": 1, "sequential": 2}
 
+# Phase 5's runs: what -> (ms/step, peak bytes allocated).
+STEP_TIMES: dict[str, tuple[float, int]] = {}
+
 
 def _train_run(card: str, augment: bool, tiled: bool, organs: int = 3,
                composite_mode: str = "none", lowres_head: bool = True) -> dict:
@@ -1257,6 +1282,7 @@ def _train_run(card: str, augment: bool, tiled: bool, organs: int = 3,
     print(f"train step ({what}): losses {[round(x, 5) for x in losses]}", flush=True)
     print(f"train step ({what}): {step_ms:.3f} ms/step, {batch_size * 1e3 / step_ms:.2f} img/s, "
           f"peak {peak / 2**30:.3f} GiB allocated, launches {counts} [{card}]", flush=True)
+    STEP_TIMES[what] = (step_ms, peak)
     steps = 3 + timed
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"train step ({what}): non-finite loss")
@@ -1334,6 +1360,218 @@ def run_main_path(card: str) -> dict:
     counts["clahe_tiled"] = tiled["clahe_tiled"]
     counts["loss_sums_fwd"], counts["loss_sums_bwd"] = seq["loss_sums_fwd"], seq["loss_sums_bwd"]
     return counts
+
+
+# Phase 7: the trainer CLI (``train_multiclass``) on the card, in a
+# temporary directory removed at the end.  (name, its directory there, env,
+# flags, steps it takes, the kernels each step launches once each way.)  (a) The flagship
+# at the JAX package's defaults: 108 training images an epoch padded to one
+# step of 128, 6 val images, 12 epochs of one step, checkpoints at epochs
+# 0, 10 and 11, the global CLAHE.  (b) The same command resumed to 13 epochs: one step.
+# (c) One organ: the full-resolution loss sums through the CLI.
+FLAGSHIP_ENV = {"ORGANS": "whole_body,ventral_side,dorsal_side", "IMGSIZE": "256"}
+CLI_RUNS = [
+    ("flagship", "flagship", FLAGSHIP_ENV, ["--num_epochs", "12"], 12,
+     ("head_loss_fwd", "head_loss_bwd")),
+    ("flagship resumed", "flagship", FLAGSHIP_ENV, ["--num_epochs", "13"], 1,
+     ("head_loss_fwd", "head_loss_bwd")),
+    ("one organ", "one_organ", {"ORGANS": "whole_body", "IMGSIZE": "256"},
+     ["--num_epochs", "3"], 3, ("loss_sums_fwd", "loss_sums_bwd")),
+]
+CLI_FLAGS = ["--dataset", "synthetic", "--batch_size", "128"]
+# The columns of the JAX CLI's metrics.csv (its train_multiclass.py:300-305).
+CLI_METRICS = sorted(["epoch", "step", "lr", "bg_weight", "loss", "bce", "focal_dice",
+                      "images_per_sec"])
+CLI_ENV_KEYS = ("ORGANS", "IMGSIZE", "IMG_SIZE", "EXPTNAME", "SAMPLE", "MAXCHANNELS",
+                "BBOX_DIR", "AUGMENT_TILED_CLAHE")
+
+
+def _read_png(path: Path) -> tuple:
+    """(height, width, channels) of an 8-bit grayscale or RGB PNG, after
+    checking its signature, every chunk's CRC, the size of its decompressed
+    rows and each row's filter type."""
+    import struct
+    import zlib
+
+    data = path.read_bytes()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path}: not a PNG")
+    pos, idat, header = 8, b"", None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])[0] != zlib.crc32(kind + body):
+            raise AssertionError(f"{path}: bad CRC in {kind!r}")
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h, depth, color = header[:4]
+    channels = {0: 1, 2: 3}[color]
+    raw = zlib.decompress(idat)
+    if depth != 8 or len(raw) != h * (1 + w * channels) or any(raw[r * (1 + w * channels)] > 4
+                                                             for r in range(h)):
+        raise AssertionError(f"{path}: not an 8-bit PNG of {h} rows of {w} pixels")
+    return h, w, channels
+
+
+def _cli_run(card: str, name: str, env: dict, flags: list, steps: int, kernels: tuple):
+    """Run the CLI once in the current directory with the counters zeroed
+    just before and read just after; returns (final state, its output, the
+    CLI's images/sec by epoch, the launch counters)."""
+    import contextlib
+    import io
+    import os
+
+    import torch
+
+    from ecologysemanticsegmentation_torch import train_multiclass as cli
+
+    for k in CLI_ENV_KEYS:
+        os.environ.pop(k, None)
+    os.environ.update(env)
+    args = cli.build_argparser().parse_args(CLI_FLAGS + flags)
+    log = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counters()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(log):
+            state = cli.train(args)
+        torch.cuda.synchronize()
+    except BaseException:
+        print(log.getvalue()[-8000:], file=sys.stderr, flush=True)
+        raise
+    wall = time.perf_counter() - t0
+    counts = _counters()
+    peak = torch.cuda.max_memory_allocated()
+    out = log.getvalue()
+    rates = [float(m) for m in re.findall(r"^epoch \d+: ([\d.]+) images/sec", out, re.M)]
+    print(f"cli ({name}): {wall:.2f} s wall, {len(rates)} epochs, the CLI's images/sec by epoch "
+          f"{rates}, peak {peak / 2**30:.3f} GiB allocated, launches {counts} [{card}]",
+          flush=True)
+    want = {k: 0 for k in counts}
+    for k in kernels:
+        want[k] = steps
+    if counts != want:
+        raise AssertionError(f"cli ({name}) did not run its kernels once a step: {counts}, "
+                             f"expected {want}")
+    return state, out, rates, counts
+
+
+def check_cli(card: str) -> dict:
+    """Phase 7; returns the launches of each kernel in the CLI runs."""
+    import importlib.util
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import ecologysemanticsegmentation_torch as est
+    from ecologysemanticsegmentation_torch.data import augment as aug
+    from ecologysemanticsegmentation_torch.data import imops, native
+    from ecologysemanticsegmentation_torch.train import checkpoint as ck
+
+    aug.TILED_CLAHE = False  # the JAX package's default, the global CLAHE
+    t0 = time.perf_counter()
+    print(f"cli: this host has cv2 {'present' if imops.HAS_CV2 else 'absent'}, PIL "
+          f"{'present' if imops._pil_image() else 'absent'}, msgpack "
+          f"{'present' if importlib.util.find_spec('msgpack') else 'absent'}; native "
+          f"host-ops library {'built' if native.native_available() else 'absent'} (JPEG "
+          f"{native.jpeg_available()}, PNG {native.png_available()})", flush=True)
+    had_msgpack = "msgpack" in sys.modules
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
+    cwd, env = os.getcwd(), dict(os.environ)
+    launches: dict = {}
+    try:
+        runs = {}
+        for name, subdir, run_env, flags, steps, kernels in CLI_RUNS:
+            (work / subdir).mkdir(exist_ok=True)
+            os.chdir(work / subdir)
+            runs[name] = _cli_run(card, name, run_env, flags, steps, kernels)
+            for k, n in runs[name][3].items():
+                launches[k] = launches.get(k, 0) + n
+        flagship = work / "flagship"
+        save_dir = flagship / "models" / "deeplabv3p" / "channels256" / "img256"
+        ckpts = sorted(p.name for p in save_dir.iterdir())
+        want = [f"deeplabv3p_epoch{e}.ckpt" for e in (0, 10, 11, 12)]
+        if ckpts != want:
+            raise AssertionError(f"cli: checkpoints {ckpts}, expected {want}")
+        resumed = runs["flagship resumed"][1]
+        latest = "Used latest model file: models/deeplabv3p/channels256/img256/" \
+                 "deeplabv3p_epoch11.ckpt"
+        if latest not in resumed or "Epoch: 12 ;" in resumed \
+                or "Epoch: 13 ; Batch: 1/1" not in resumed:
+            raise AssertionError("cli (flagship resumed): did not resume from epoch 11 and run "
+                                 "epoch 12 only")
+        with open(flagship / "models" / "deeplabv3p" / "metrics.csv") as f:
+            header, *rows = [line.strip().split(",") for line in f]
+        if header != CLI_METRICS or len(rows) != 13:
+            raise AssertionError(f"cli: metrics.csv has {header} and {len(rows)} rows")
+        losses = [float(r[header.index("loss")]) for r in rows[:12]]
+        print(f"cli (flagship): loss by epoch {[round(x, 5) for x in losses]}", flush=True)
+        # Each epoch draws another batch and augmentation: the means of the
+        # first and the last three epochs, not two single steps.
+        if not all(math.isfinite(x) for x in losses) or not sum(losses[-3:]) < sum(losses[:3]):
+            raise AssertionError(f"cli (flagship): loss not finite or not falling: {losses}")
+        # The port's reader restores the epoch-12 file into a fresh state.
+        model = est.build_model("deeplabv3plus", num_classes=3, upsample_head=False)
+        fresh = est.create_train_state(model, torch.Generator().manual_seed(99),
+                                       est.make_optimizer(3e-4))
+        epoch, fresh = ck.load_recent_model(str(save_dir), fresh, "deeplabv3p", epoch=12)
+        got, ran = ck.state_to_flax(fresh), ck.state_to_flax(runs["flagship resumed"][0])
+        flat = _flat_tree(got)
+        if epoch != 12 or flat.keys() != _flat_tree(ran).keys() or not all(
+                np.array_equal(v, _flat_tree(ran)[k]) for k, v in flat.items()):
+            raise AssertionError("cli: the epoch-12 checkpoint does not restore the run's state")
+        print(f"cli: the epoch-12 checkpoint restores the run's state, {len(flat)} leaves equal",
+              flush=True)
+        # Val triplets: the first 10 (here all 6) val images of every epoch.
+        n_png = 0
+        for subdir, epochs, organs in (("flagship", 13, 3), ("one_organ", 3, 1)):
+            root = work / subdir / "val_images"
+            for e in range(epochs):
+                for j in range(6):
+                    names = [f"{j}_img.png"] + [f"{j}_{kind}_organ{c}.png" for c in range(organs)
+                                                for kind in ("gt", "pred")]
+                    for png in names:
+                        shape = _read_png(root / str(e) / png)
+                        if shape != (256, 256, 3 if png.endswith("img.png") else 1):
+                            raise AssertionError(f"cli: {png} of epoch {e} is {shape}")
+                        n_png += 1
+        print(f"cli: {n_png} val PNGs readable at 256 x 256", flush=True)
+        # The host pipeline's share: the CLI's step against phase 5's.
+        ms, peak = STEP_TIMES["flagship, augment=True, global CLAHE"]
+        rates = runs["flagship"][2][1:]
+        cli_ms = sorted(108e3 / r for r in rates)[len(rates) // 2]
+        print(f"cli (flagship) against phase 5: the CLI's epoch of one step (108 images) "
+              f"{cli_ms:.3f} ms median over epochs 1-11 ({108e3 / cli_ms:.2f} img/s), phase "
+              f"5's augmented step {ms:.3f} ms ({128e3 / ms:.2f} img/s of 128, peak "
+              f"{peak / 2**30:.3f} GiB); the difference {cli_ms - ms:.3f} ms is the host "
+              f"pipeline, the metrics' transfer and the random draws [{card}]", flush=True)
+    finally:
+        os.chdir(cwd)
+        os.environ.clear()
+        os.environ.update(env)
+        shutil.rmtree(work, ignore_errors=True)
+    if "msgpack" in sys.modules and not had_msgpack:
+        raise AssertionError("cli: the trainer imported msgpack")
+    print(f"cli: phase 7 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
+def _flat_tree(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_tree(v, f"{prefix}/{k}"))
+        else:
+            out[f"{prefix}/{k}"] = v
+    return out
 
 
 # Phase 6: four ranks on the one card over gloo (NCCL refuses two ranks on
@@ -1654,10 +1892,14 @@ def main() -> int:
     # Phases 4 and 5: the main path, counted.
     counts = run_main_path(card)
     torch.cuda.empty_cache()
+    # Phase 7: the trainer CLI, counted run by run.
+    cli_counts = check_cli(card)
+    torch.cuda.empty_cache()
     # Phase 6: the parallel paths, counted on each rank.
     counts.update({k: v for k, v in check_parallel(card).items() if k.startswith("head_loss_shard")})
     for name, entry in report.items():
         entry["launches"] = counts[name]
+        entry["cli_launches"] = cli_counts.get(name, 0)
     print(json.dumps({"kernels": list(report.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -7,7 +7,12 @@ import torch
 
 from .. import resolve_device
 from .deeplabv3plus import DeepLabV3Plus
-from .from_flax import from_flax_variables, to_flax_variables
+from .from_flax import (
+    from_flax_variables,
+    optimizer_from_flax,
+    optimizer_to_flax,
+    to_flax_variables,
+)
 
 MODEL_NAMES = (
     "deeplabv3plus", "deeplabv3plus_depthwise", "unet", "vgg_unet",
@@ -30,5 +35,6 @@ def build_model(name: str = "deeplabv3plus", num_classes: int = 1,
 
 
 __all__ = [
-    "DeepLabV3Plus", "MODEL_NAMES", "build_model", "from_flax_variables", "to_flax_variables",
+    "DeepLabV3Plus", "MODEL_NAMES", "build_model", "from_flax_variables", "optimizer_from_flax",
+    "optimizer_to_flax", "to_flax_variables",
 ]

@@ -11,6 +11,20 @@ Leaves map as:
 * BatchNorm ``scale``/``bias`` -> ``weight``/``bias``; conv ``bias`` -> ``bias``;
 * ``batch_stats`` ``mean``/``var`` -> ``running_mean``/``running_var``.
 
+The trees come out with their keys sorted at every level, as
+``jax.device_get`` leaves them, so a checkpoint packs to the JAX package's
+bytes.
+
+:func:`optimizer_to_flax` and :func:`optimizer_from_flax` map the
+optimizer of ``train.make_optimizer(lr, grad_accum)`` to and from the
+``opt_state`` of the JAX package's ``make_optimizer``
+(``inject_hyperparams(adam)``, wrapped in ``MultiSteps`` when
+``grad_accum > 1``): Adam's ``exp_avg`` and ``exp_avg_sq`` are ``mu`` and
+``nu`` (parameter names and layouts as above), the per-tensor ``step`` is
+``count``, ``param_groups[0]["lr"]`` is ``hyperparams/learning_rate``, and
+``MultiSteps``'s accumulator, ``mini_step`` and update count are
+``acc_grads``, ``mini_step`` and ``gradient_step``.
+
 Inputs and outputs are numpy (the tests pass arrays between the packages).
 """
 
@@ -54,6 +68,10 @@ def from_flax_variables(variables: Mapping) -> dict[str, torch.Tensor]:
     return sd
 
 
+def _sorted(tree: dict) -> dict:
+    return {k: _sorted(v) if isinstance(v, dict) else v for k, v in sorted(tree.items())}
+
+
 def to_flax_variables(state_dict: Mapping[str, torch.Tensor]) -> dict:
     """Inverse of :func:`from_flax_variables`: numpy ``{"params", "batch_stats"}``."""
     params: dict = {}
@@ -69,4 +87,78 @@ def to_flax_variables(state_dict: Mapping[str, torch.Tensor]) -> dict:
             _insert(params, mods + ["scale"], a)
         else:
             _insert(params, mods + [leaf], a)
-    return {"params": params, "batch_stats": stats}
+    return {"params": _sorted(params), "batch_stats": _sorted(stats)}
+
+
+def _f32(x) -> np.ndarray:
+    return np.asarray(x, np.float32)
+
+
+def _i32(x) -> np.ndarray:
+    return np.asarray(x, np.int32)
+
+
+def _adam(optimizer):
+    """The Adam inside ``optimizer`` (itself, or a ``MultiSteps``'s inner)."""
+    return getattr(optimizer, "inner", optimizer)
+
+
+def optimizer_to_flax(model: torch.nn.Module, optimizer) -> dict:
+    """The JAX package's ``opt_state`` of ``model``'s optimizer, numpy."""
+    adam = _adam(optimizer)
+    named = list(model.named_parameters())
+    states = [adam.state.get(p, {}) for _, p in named]
+    count = int(states[0]["step"]) if "step" in states[0] else 0
+
+    def moment(key):
+        return to_flax_variables({
+            n: s[key] if key in s else torch.zeros_like(p)
+            for (n, p), s in zip(named, states)})["params"]
+
+    group = adam.param_groups[0]
+    b1, b2 = group["betas"]
+    inner = {
+        "count": _i32(count),
+        "hyperparams": {"b1": _f32(b1), "b2": _f32(b2), "eps": _f32(group["eps"]),
+                        "eps_root": _f32(0.0), "learning_rate": _f32(group["lr"])},
+        "hyperparams_states": {},
+        "inner_state": {"0": {"count": _i32(count), "mu": moment("exp_avg"),
+                              "nu": moment("exp_avg_sq")}, "1": {}},
+    }
+    if adam is optimizer:
+        return inner
+    acc = dict(zip(optimizer._params, optimizer._acc))
+    return {
+        "mini_step": _i32(optimizer.mini_step),
+        "gradient_step": _i32(count),
+        "inner_opt_state": inner,
+        "acc_grads": to_flax_variables({n: acc[p] for n, p in named})["params"],
+        "skip_state": {},
+    }
+
+
+@torch.no_grad()
+def optimizer_from_flax(model: torch.nn.Module, optimizer, opt_state: Mapping) -> None:
+    """Load the JAX package's ``opt_state`` into ``model``'s optimizer, in
+    place.  Adam's betas and eps stay the optimizer's; a count of 0 leaves
+    Adam's state empty, as a fresh optimizer's is."""
+    adam = _adam(optimizer)
+    inner = opt_state if adam is optimizer else opt_state["inner_opt_state"]
+    adam_state = inner["inner_state"]["0"]
+    count = int(adam_state["count"])
+    mu = from_flax_variables({"params": adam_state["mu"]})
+    nu = from_flax_variables({"params": adam_state["nu"]})
+    for n, p in model.named_parameters():
+        adam.state.pop(p, None)
+        if count:
+            adam.state[p] = {"step": torch.tensor(float(count), dtype=torch.float32),
+                             "exp_avg": torch.empty_like(p).copy_(mu[n]),
+                             "exp_avg_sq": torch.empty_like(p).copy_(nu[n])}
+    for group in adam.param_groups:
+        group["lr"] = float(inner["hyperparams"]["learning_rate"])
+    if adam is not optimizer:
+        optimizer.mini_step = int(opt_state["mini_step"])
+        acc = from_flax_variables({"params": opt_state["acc_grads"]})
+        by_param = dict(zip(optimizer._params, optimizer._acc))
+        for n, p in model.named_parameters():
+            by_param[p].copy_(acc[n])

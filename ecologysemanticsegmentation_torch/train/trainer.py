@@ -218,7 +218,7 @@ def make_train_step(model: nn.Module, tx, composite_mode: str = "none", augment:
                          f"composite_mode={composite_mode!r} needs lowres_head=False")
     if deepsupervision:
         raise NotImplementedError("deepsupervision needs the VGG models' side heads, not "
-                                  "ported yet (ROADMAP queue 1, item 12)")
+                                  "ported yet (ROADMAP queue 1, item 7)")
     if k_steps != 1:
         raise NotImplementedError("k_steps > 1 is the JAX package's scan of steps in one "
                                   "dispatch, which amortizes TPU dispatch and changes no "

@@ -16,6 +16,7 @@ import copy
 import datetime
 import functools
 import hashlib
+import os
 import socket
 import time
 import zlib
@@ -320,6 +321,13 @@ JOBS = {"parallel": job_parallel, "flagship_2x2": job_flagship_2x2}
 
 
 # -------------------------------------------------------------- spawn
+
+
+def bound_threads() -> None:
+    """Bound torch's intra-op threads in a test process to one pytest-xdist
+    worker's share of the cores, as :func:`_rank_main` bounds each rank to 1."""
+    torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                              // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 
 def _rank_main(rank: int, port: int, out_dir: str, job: str) -> None:

@@ -30,6 +30,9 @@ import torch
 
 from ecologysemanticsegmentation_tpu.data import augment as ja
 from ecologysemanticsegmentation_torch.data import augment as pa
+from _torch_parallel_ranks import bound_threads
+
+bound_threads()
 
 ATOL = 1e-5
 B = 2

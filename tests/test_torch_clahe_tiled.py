@@ -13,6 +13,7 @@ shared memory.  The card's test of the CUDA kernel against the plain version
 is in ``test_torch_package.py``, which imports no JAX.
 """
 
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,6 +21,9 @@ import torch
 
 from ecologysemanticsegmentation_tpu.ops.pallas import clahe_tiled as jc
 from ecologysemanticsegmentation_torch.ops import clahe_tiled as pc
+from _torch_parallel_ranks import bound_threads
+
+bound_threads()
 
 RTOL = 1e-5
 

@@ -16,6 +16,9 @@ three cases of tests/test_grad_accum.py on the port's train step.
   size).  BatchNorm statistics update on every micro-step.
 """
 
+import copy
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +29,9 @@ from ecologysemanticsegmentation_tpu.train import trainer as jt
 from ecologysemanticsegmentation_torch import make_optimizer, make_train_step
 from ecologysemanticsegmentation_torch.models import DeepLabV3Plus
 from ecologysemanticsegmentation_torch.train import MultiSteps, TrainState, init_weights
+from _torch_parallel_ranks import bound_threads
+
+bound_threads()
 
 LR = 1e-3
 
@@ -64,10 +70,18 @@ def test_multisteps_matches_optax(k):
         assert int(jstate.gradient_step) == (i + 1) // k
 
 
-def _setup(grad_accum: int):
+@functools.lru_cache(maxsize=None)
+def _initial_model() -> DeepLabV3Plus:
     model = DeepLabV3Plus(num_classes=3, decoder_features=16, upsample_head=False)
     model = model.to(memory_format=torch.channels_last)
     init_weights(model, torch.Generator().manual_seed(0))
+    return model
+
+
+def _setup(grad_accum: int):
+    # A copy of one initialization from seed 0 (drawing 21 M weights takes
+    # seconds; every test starts from the same ones).
+    model = copy.deepcopy(_initial_model())
     tx = make_optimizer(LR, grad_accum=grad_accum)
     state = TrainState(step=0, model=model, optimizer=tx(model.parameters()))
     step = make_train_step(model, tx, augment=False, lowres_head=True)

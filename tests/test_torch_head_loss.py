@@ -13,6 +13,7 @@ atol 1e-4 (f32 sums of up to ~10^5 terms in another order), gradients at
 rtol 5e-4 / atol 5e-5 (transcendentals and two projections in another order).
 """
 
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +24,9 @@ from ecologysemanticsegmentation_tpu.ops.pallas import head_loss as jhl
 from ecologysemanticsegmentation_tpu.ops.resize import _interp_matrix as jax_interp_matrix
 from ecologysemanticsegmentation_torch.ops import head_loss as thl
 from ecologysemanticsegmentation_torch.ops.resize import _interp_matrix, _interp_taps
+from _torch_parallel_ranks import bound_threads
+
+bound_threads()
 
 
 def _case(rng, b, h, w, c, scale=4):

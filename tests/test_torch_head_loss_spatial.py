@@ -27,6 +27,9 @@ import torch
 
 from ecologysemanticsegmentation_tpu.ops.pallas import head_loss as jhl
 from ecologysemanticsegmentation_torch.ops import head_loss as thl
+from _torch_parallel_ranks import bound_threads
+
+bound_threads()
 
 B, h, w = 8, 16, 16
 H = W = 64

@@ -23,6 +23,7 @@ Tolerances, with reasons:
   ``test_bwd_port_is_the_f64_formula``).
 """
 
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -31,6 +32,9 @@ import torch
 
 from ecologysemanticsegmentation_tpu.ops.pallas import loss_sums as jls
 from ecologysemanticsegmentation_torch.ops import loss_sums as tls
+from _torch_parallel_ranks import bound_threads
+
+bound_threads()
 
 N = 3001
 SUM_TOL = dict(rtol=2e-5, atol=1e-2)

@@ -16,6 +16,9 @@ from ecologysemanticsegmentation_tpu import losses as jl
 from ecologysemanticsegmentation_tpu.train.trainer import _prepare_labels as jax_prepare_labels
 from ecologysemanticsegmentation_torch import losses as tl
 from ecologysemanticsegmentation_torch.train.trainer import _prepare_labels
+from _torch_parallel_ranks import bound_threads
+
+bound_threads()
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 

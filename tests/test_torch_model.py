@@ -12,6 +12,7 @@ batch-2 statistics amplifies the rounding (flax takes the variance as
 E[x^2] - E[x]^2, torch in two passes).
 """
 
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,6 +23,9 @@ from ecologysemanticsegmentation_tpu.models.deeplabv3plus import DeepLabV3Plus a
 from ecologysemanticsegmentation_torch.models import DeepLabV3Plus, from_flax_variables
 from ecologysemanticsegmentation_torch.models import to_flax_variables
 from ecologysemanticsegmentation_torch.train import init_weights
+from _torch_parallel_ranks import bound_threads
+
+bound_threads()
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 TRAIN_TOL = dict(rtol=1e-4, atol=5e-4)

@@ -10,6 +10,7 @@
   without a card, those tests skip.
 """
 
+import ast
 import os
 import subprocess
 import sys
@@ -23,6 +24,9 @@ import ecologysemanticsegmentation_torch as est
 from ecologysemanticsegmentation_torch.ops import clahe_tiled as ct
 from ecologysemanticsegmentation_torch.ops import head_loss as hl
 from ecologysemanticsegmentation_torch.ops import loss_sums as tls
+from _torch_parallel_ranks import bound_threads
+
+bound_threads()
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -31,13 +35,27 @@ def test_port_imports_no_jax():
     mods = sorted(
         ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
         for p in (ROOT / "ecologysemanticsegmentation_torch").rglob("*.py"))
+    # The host data layer, the checkpoints and the CLI are among them, and
+    # none names JAX, flax, optax, the JAX package or msgpack in an import.
+    for new in ("config", "data.loaders", "data.native", "data.pipeline", "data.synthetic",
+                "data.fish_dataset", "data.imops", "train.schedules", "train.checkpoint",
+                "train._msgpack", "utils.profiling", "train_multiclass", "train.__main__"):
+        assert f"ecologysemanticsegmentation_torch.{new}" in mods, new
+    banned = ("jax", "jaxlib", "flax", "optax", "ecologysemanticsegmentation_tpu", "msgpack")
+    for path in [ROOT / "chip_smoke.py",
+                 *(ROOT / "ecologysemanticsegmentation_torch").rglob("*.py")]:
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import) else
+                     [node.module or ""] if isinstance(node, ast.ImportFrom) and not node.level
+                     else [])
+            assert not [n for n in names if n.split(".")[0] in banned], (path, names)
     code = (
         "import importlib, sys\n"
         f"for m in {mods + ['chip_smoke']!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',\n"
-        "                                    'ecologysemanticsegmentation_tpu'))\n"
+        "                                    'ecologysemanticsegmentation_tpu', 'msgpack'))\n"
         "assert not bad, bad\n"
         "print(len(sys.modules))\n"
     )
@@ -75,7 +93,7 @@ def test_train_step_scope():
     assert callable(est.make_train_step(model, tx, augment=True, lowres_head=True))
     for mode in ("none", "sequential", "general"):
         assert callable(est.make_train_step(model, tx, composite_mode=mode, lowres_head=False))
-    for kwargs, item in [({"deepsupervision": True}, "item 12"), ({"k_steps": 2}, "on purpose")]:
+    for kwargs, item in [({"deepsupervision": True}, "item 7"), ({"k_steps": 2}, "on purpose")]:
         with pytest.raises(NotImplementedError, match=item):
             est.make_train_step(model, tx, **kwargs)
     with pytest.raises(TypeError, match="parallel.Mesh"):

@@ -46,6 +46,8 @@ from ecologysemanticsegmentation_tpu.parallel import (
 from ecologysemanticsegmentation_tpu.train import trainer as jt
 from ecologysemanticsegmentation_torch.models import to_flax_variables
 
+R.bound_threads()
+
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):

@@ -53,6 +53,9 @@ from ecologysemanticsegmentation_torch.train import (
     make_optimizer,
     make_train_step,
 )
+from _torch_parallel_ranks import bound_threads
+
+bound_threads()
 
 NUM_CLASSES, FEATURES, IMG, BATCH = 3, 32, 32, 2
 LR, B1 = 1e-3, 0.9

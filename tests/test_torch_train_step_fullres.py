@@ -61,6 +61,9 @@ from ecologysemanticsegmentation_torch.train import (
     make_optimizer,
     make_train_step,
 )
+from _torch_parallel_ranks import bound_threads
+
+bound_threads()
 
 FEATURES, IMG, BATCH = 32, 32, 2
 LR, B1 = 1e-3, 0.9
