@@ -94,14 +94,39 @@ exit code before the result line is printed):
    with the JAX CLI's columns.  Printed: each run's wall time, the CLI's
    images per second by epoch and peak memory, and the CLI's step beside
    phase 5's augmented step (their difference is the host pipeline's
-   share).
+   share);
+8. per-sample augmentation, the sequential trainer and the eval CLIs (runs
+   after phase 7, before phase 6): (a) the per-sample apply
+   (``AUGMENT_PER_SAMPLE=1``) on the card at batch 8, 64 px, with every
+   OneOf op and warp case forced, against the per-sample apply on the CPU
+   from the same draws and against eight singleton batch-uniform applies on
+   the card (phase 3's image tolerance; masks equal but for a few pixels
+   at rounding ties), neither granularity's call synchronizing with the
+   device (``torch.cuda.set_sync_debug_mode("error")``), then phase 5's
+   augmented flagship run with
+   per-sample draws, 13 steps in each CLAHE form (head loss 13 + 13, tiled
+   CLAHE 13 in the tiled run, nothing else), beside phase 5's batch-uniform
+   step; (b) ``train_multiclass_sequential_densenetloss`` in-process like
+   ``python -m``, ``--dataset synthetic --batch_size 128``, three organs at
+   256 px, augmented, 12 epochs in a temporary directory: the loss sums
+   2 + 2 a step and no other kernel, the divergence guard holding, the loss
+   falling, checkpoints at epochs 0, 5, 10 and 11, the plateau lr and the
+   CLI's img/s by epoch beside phase 5's sequential step; (c)
+   ``test_multiclass_sequential_densenetloss`` over (b)'s checkpoints
+   (per-organ Dice finite in [0, 1], a second call skipping every epoch,
+   ``--single_model`` with ``--edge_analysis`` writing readable PNGs) and
+   ``test_multiclass`` over a seeded synthetic smp-layout ``.pt`` state
+   dict, which must score exactly as its round trip through the port's
+   ``save_checkpoint`` does; the eval's ms per batch, and no kernel launch.
 
 The device time of the step by layer is not measured here:
 ``python3 -m ecologysemanticsegmentation_torch.train.profile_step`` does that.
 
 The line before the last holds the card's name and power limit; the
 ``kernels`` JSON line comes before it (each kernel's ``launches`` in the
-phase 5 or 6 run that exercises it, and its ``cli_launches`` in phase 7);
+phase 5 or 6 run that exercises it, its ``cli_launches`` in phase 7, its
+``per_sample_launches`` in phase 8's per-sample tiled-CLAHE run and its
+``seq_cli_launches`` in phase 8's sequential CLI);
 the last line is the device result.
 Without a CUDA device, or without the rest of the repository beside it, the
 script exits non-zero and prints no result.
@@ -1235,23 +1260,41 @@ STEP_TIMES: dict[str, tuple[float, int]] = {}
 
 
 def _train_run(card: str, augment: bool, tiled: bool, organs: int = 3,
-               composite_mode: str = "none", lowres_head: bool = True) -> dict:
+               composite_mode: str = "none", lowres_head: bool = True,
+               per_sample: bool = False) -> dict:
     """13 steps (3 warm-up, 10 timed) from fresh weights at full width; the
-    counters are zeroed just before and read just after.  Returns the
-    counts."""
+    counters are zeroed just before and read just after.  ``per_sample``
+    draws the augmentation per sample (``AUGMENT_PER_SAMPLE=1``).  Returns
+    the counts."""
+    from ecologysemanticsegmentation_torch.data import augment as aug
+    from ecologysemanticsegmentation_torch.train import trainer
+
+    # The step reads the CLAHE form from the module flag, which
+    # AUGMENT_TILED_CLAHE sets at import, and the augmentation from the
+    # trainer's binding, which AUGMENT_PER_SAMPLE sets at import; every form
+    # runs in this process.
+    aug.TILED_CLAHE = tiled
+    saved = trainer.augment_batch
+    trainer.augment_batch = aug.augment_batch_per_sample if per_sample else aug.augment_batch
+    try:
+        return _timed_steps(card, augment, tiled, organs, composite_mode, lowres_head,
+                            per_sample)
+    finally:
+        trainer.augment_batch = saved
+
+
+def _timed_steps(card: str, augment: bool, tiled: bool, organs: int, composite_mode: str,
+                 lowres_head: bool, per_sample: bool) -> dict:
     import torch
 
     import ecologysemanticsegmentation_torch as est
-    from ecologysemanticsegmentation_torch.data import augment as aug
 
     batch_size, img = 128, 256
     what = ("flagship" if lowres_head else
             "sequential" if composite_mode == "sequential" else f"full resolution, C = {organs}")
     what += (", augment=False" if not augment else
-             f", augment=True, {'tiled' if tiled else 'global'} CLAHE")
-    # The step reads the CLAHE form from the module flag, which
-    # AUGMENT_TILED_CLAHE sets at import; both forms run in this process.
-    aug.TILED_CLAHE = tiled
+             f", augment=True{' per sample' if per_sample else ''}, "
+             f"{'tiled' if tiled else 'global'} CLAHE")
     model = est.build_model("deeplabv3plus", num_classes=organs, upsample_head=not lowres_head)
     tx = est.make_optimizer(3e-4)
     state = est.create_train_state(model, torch.Generator().manual_seed(0), tx)
@@ -1572,6 +1615,376 @@ def _flat_tree(tree: dict, prefix: str = "") -> dict:
         else:
             out[f"{prefix}/{k}"] = v
     return out
+
+
+# Phase 8: per-sample augmentation, the sequential trainer CLI and the eval
+# CLIs.  Mask pixels of the per-sample check that may take the other
+# neighbour: the card computes each sample's rotation (cos, sin) on the
+# device, the CPU and the batch-uniform path on the host, so a coordinate
+# one f32 ulp from a nearest-neighbour tie can round the other way.
+PS_MASK_FRAC = 1e-3
+SEQ_CLI_EPOCHS = 12   # one step each; checkpoints at epochs 0, 5, 10 and 11
+# The synthetic set at 256 px: 128 images, split 108 / 6 / 14.
+TEST_IMAGES = 14
+
+
+def _params_to(params: dict, device: str) -> dict:
+    """Per-sample draws moved to ``device``; the OneOf choices stay on the
+    host, where the pipeline reads them."""
+    out = {}
+    for k, v in params.items():
+        if k.endswith("_choice"):
+            out[k] = v
+        elif isinstance(v, dict):
+            out[k] = _params_to(v, device)
+        elif isinstance(v, tuple):
+            out[k] = tuple(t.to(device) for t in v)
+        else:
+            out[k] = v.to(device)
+    return out
+
+
+def check_augment_per_sample() -> None:
+    """Phase 8 (a), first: the per-sample apply on the card (batch 8 at
+    64 px) against the per-sample apply on the CPU from the same draws and
+    against eight singleton batch-uniform applies on the card, in both
+    CLAHE forms, with the draws forced so that every OneOf op, the crop, the
+    flip and the rotation each occur (alone and composed) and one sample
+    has every gate off.  Images at phase 3's tolerance; masks equal but for
+    at most ``PS_MASK_FRAC`` of their pixels."""
+    import torch
+
+    from ecologysemanticsegmentation_torch.data import augment as aug
+
+    b, img = 8, 64
+    gen = torch.Generator().manual_seed(16)
+    images = torch.rand((b, img, img, 3), generator=gen)
+    masks = (torch.rand((b, img, img, 3), generator=gen) * 3).floor() - 1.0
+    params = aug.draw_augment_params_per_sample(torch.Generator().manual_seed(17),
+                                                torch.Generator().manual_seed(18), b, img, img)
+    on = torch.ones((b, 1, 1, 1), dtype=torch.bool)
+    on[0] = False
+    params["outer"] = params["blur_gate"] = params["color_gate"] = on
+    params["blur_choice"] = torch.tensor([0, 0, 1, 2, 3, 1, 2, 3])
+    params["color_choice"] = torch.tensor([0, 0, 1, 2, 3, 3, 2, 1])
+    params["crop_gate"] = torch.tensor([False, True, False, False, True, False, True, False])
+    params["flip_gate"] = torch.tensor([False, False, True, False, True, True, False, True])
+    params["rot_gate"] = torch.tensor([False, False, False, True, True, True, True, False])
+    params["degree"] = torch.tensor([0.0, 12.0, 0.0, 37.0, 33.0, 71.0, 5.0, 0.0])
+    card_params = _params_to(params, "cuda")
+    worst, worst_mask = 0.0, 0.0
+    for tiled in (False, True):
+        cpu = aug.apply_augment_per_sample(images, masks, params, tiled_clahe=tiled)
+        card = aug.apply_augment_per_sample(images.cuda(), masks.cuda(), card_params,
+                                            tiled_clahe=tiled)
+        singles = [aug.apply_augment(images[i:i + 1].cuda(), masks[i:i + 1].cuda(),
+                                     aug.sample_augment_params(card_params, i),
+                                     tiled_clahe=tiled) for i in range(b)]
+        single = tuple(torch.cat([s[k] for s in singles]) for k in (0, 1))
+        for what, want in (("the per-sample apply on the CPU", cpu),
+                           ("8 singleton batch-uniform applies on the card", single)):
+            got_img, want_img = card[0].float().cpu(), want[0].float().cpu()
+            err = (got_img - want_img).abs()
+            flipped = (err > AUG_ULPS * _bf16_ulp(want_img)).any(-1).float().mean().item()
+            mask_frac = (card[1].cpu() != want[1].cpu()).float().mean().item()
+            if not (flipped <= AUG_FLIP_FRAC and err.max().item() <= AUG_FLIP_MAX
+                    and mask_frac <= PS_MASK_FRAC and card[0].dtype == torch.bfloat16):
+                raise AssertionError(
+                    f"per-sample augmentation on the card disagrees with {what} "
+                    f"(tiled={tiled}): {flipped:.4f} of pixels beyond {AUG_ULPS} ulps, max "
+                    f"err {err.max().item():.4g}, masks differ at {mask_frac:.4g}")
+            worst = max(worst, err.max().item())
+            worst_mask = max(worst_mask, mask_frac)
+    # Neither granularity waits for the device: a synchronizing call would
+    # hold the host until the previous step's work is done.
+    on_card = images.cuda(), masks.cuda()
+    for fn in (aug.augment_batch_per_sample, aug.augment_batch):
+        gens = (torch.Generator().manual_seed(19), torch.Generator(device="cuda").manual_seed(20))
+        fn(gens, *on_card)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn(gens, *on_card)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    print(f"per-sample augment check: the card's per-sample apply = the CPU's and = 8 "
+          f"singleton batch-uniform applies on the card, 2 CLAHE forms, every OneOf op and "
+          f"warp case (max err {worst:.4g}, masks differ at {worst_mask:.4g} of pixels); no "
+          f"call of either granularity synchronizes with the device", flush=True)
+
+
+def _smp_state_dict(seed: int, classes: int = 3) -> dict:
+    """A seeded synthetic state dict of smp 0.3.3's DeepLabV3Plus(resnet34),
+    the layout of the reference's ``torch.save(net.state_dict())``."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+
+    def conv(name, o, i, k):
+        sd[f"{name}.weight"] = 0.02 * torch.randn((o, i, k, k), generator=gen)
+
+    def bn(name, c):
+        sd[f"{name}.weight"] = 1.0 + 0.1 * torch.randn(c, generator=gen)
+        sd[f"{name}.bias"] = 0.1 * torch.randn(c, generator=gen)
+        sd[f"{name}.running_mean"] = 0.1 * torch.randn(c, generator=gen)
+        sd[f"{name}.running_var"] = 0.5 + torch.rand(c, generator=gen)
+        sd[f"{name}.num_batches_tracked"] = torch.tensor(0)
+
+    def sep(name, i, o, bn_name):
+        conv(f"{name}.0", i, 1, 3)
+        conv(f"{name}.1", o, i, 1)
+        bn(bn_name, o)
+
+    conv("encoder.conv1", 64, 3, 7)
+    bn("encoder.bn1", 64)
+    in_ch = 64
+    for layer, blocks, width in ((1, 3, 64), (2, 4, 128), (3, 6, 256), (4, 3, 512)):
+        for b in range(blocks):
+            base = f"encoder.layer{layer}.{b}"
+            conv(f"{base}.conv1", width, in_ch if b == 0 else width, 3)
+            bn(f"{base}.bn1", width)
+            conv(f"{base}.conv2", width, width, 3)
+            bn(f"{base}.bn2", width)
+            if b == 0 and in_ch != width:
+                conv(f"{base}.downsample.0", width, in_ch, 1)
+                bn(f"{base}.downsample.1", width)
+        in_ch = width
+    conv("decoder.aspp.0.convs.0.0", 256, 512, 1)
+    bn("decoder.aspp.0.convs.0.1", 256)
+    for i in (1, 2, 3):
+        sep(f"decoder.aspp.0.convs.{i}.0", 512, 256, f"decoder.aspp.0.convs.{i}.1")
+    conv("decoder.aspp.0.convs.4.1", 256, 512, 1)
+    bn("decoder.aspp.0.convs.4.2", 256)
+    conv("decoder.aspp.0.project.0", 256, 256 * 5, 1)
+    bn("decoder.aspp.0.project.1", 256)
+    sep("decoder.aspp.1", 256, 256, "decoder.aspp.2")
+    conv("decoder.block1.0", 48, 64, 1)
+    bn("decoder.block1.1", 48)
+    sep("decoder.block2.0", 256 + 48, 256, "decoder.block2.1")
+    conv("segmentation_head.0", classes, 256, 1)
+    sd["segmentation_head.0.bias"] = 0.1 * torch.randn(classes, generator=gen)
+    return sd
+
+
+def _run_cli(fn, args, fail_log: bool = True) -> str:
+    """Call a CLI's entry point with its stdout captured; its output."""
+    import contextlib
+    import io
+
+    log = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(log):
+            fn(args)
+    except BaseException:
+        if fail_log:
+            print(log.getvalue()[-8000:], file=sys.stderr, flush=True)
+        raise
+    return log.getvalue()
+
+
+def check_sequential_cli(card: str) -> dict:
+    """Phase 8 (b): ``train_multiclass_sequential_densenetloss`` in the
+    current directory, flagship env, batch 128, augmented, for
+    ``SEQ_CLI_EPOCHS`` epochs; returns its launch counters."""
+    import os
+
+    import torch
+
+    from ecologysemanticsegmentation_torch import train_multiclass_sequential_densenetloss as scli
+
+    for k in CLI_ENV_KEYS:
+        os.environ.pop(k, None)
+    os.environ.update(FLAGSHIP_ENV)
+    args = scli.build_argparser().parse_args(CLI_FLAGS + ["--num_epochs", str(SEQ_CLI_EPOCHS)])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counters()
+    t0 = time.perf_counter()
+    out = _run_cli(scli.train, args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counters()
+    peak = torch.cuda.max_memory_allocated()
+    epochs = re.findall(r"^Epoch (\d+): loss (\S+) \(([\d.]+) img/s, lr=(\S+), bg=(\S+)\)$",
+                        out, re.M)
+    val = [float(v) for v in re.findall(r"^Val Loss: (\S+)!$", out, re.M)]
+    losses = [float(e[1]) for e in epochs]
+    rates = [float(e[2]) for e in epochs]
+    print(f"sequential cli: {wall:.2f} s wall, {len(epochs)} epochs, the CLI's img/s by epoch "
+          f"{rates}, plateau lr by epoch {[e[3] for e in epochs]}, val BCE {val}, peak "
+          f"{peak / 2**30:.3f} GiB allocated, launches {counts} [{card}]", flush=True)
+    print(f"sequential cli: loss by epoch {losses}", flush=True)
+    want = {k: 0 for k in counts}
+    want["loss_sums_fwd"] = want["loss_sums_bwd"] = 2 * SEQ_CLI_EPOCHS
+    if counts != want:
+        raise AssertionError(f"sequential cli did not launch the loss sums 2 + 2 a step: "
+                             f"{counts}, expected {want}")
+    if len(epochs) != SEQ_CLI_EPOCHS or len(val) != SEQ_CLI_EPOCHS \
+            or "finished training" not in out:
+        raise AssertionError("sequential cli: did not run every epoch and its val loop "
+                             "(the divergence guard aborts a run)")
+    if not all(math.isfinite(x) for x in losses + val) \
+            or not sum(losses[-3:]) < sum(losses[:3]):
+        raise AssertionError(f"sequential cli: loss not finite or not falling: {losses}")
+    save_dir = Path("models") / "deeplabv3p" / "channels256" / "img256"
+    ckpts = sorted(p.name for p in save_dir.iterdir())
+    want_ckpts = sorted(f"deeplabv3p_epoch{e}.ckpt" for e in (0, 5, 10, SEQ_CLI_EPOCHS - 1))
+    if ckpts != want_ckpts:
+        raise AssertionError(f"sequential cli: checkpoints {ckpts}, expected {want_ckpts}")
+    ms, _ = STEP_TIMES["sequential, augment=True, global CLAHE"]
+    cli_ms = sorted(108e3 / r for r in rates[1:])[len(rates[1:]) // 2]
+    print(f"sequential cli against phase 5: the CLI's epoch of one step (108 images) "
+          f"{cli_ms:.3f} ms median over epochs 1-{SEQ_CLI_EPOCHS - 1} ({108e3 / cli_ms:.2f} "
+          f"img/s), phase 5's sequential step {ms:.3f} ms; the host's share "
+          f"{cli_ms - ms:.3f} ms ({(cli_ms - ms) / cli_ms:.0%}) [{card}]", flush=True)
+    return counts
+
+
+def check_eval_clis(card: str, work: Path) -> None:
+    """Phase 8 (c): the sequential evaluator over (b)'s checkpoints in
+    ``work / "sequential"`` (the sweep, a second call, ``--single_model``
+    with ``--edge_analysis``), and ``test_multiclass`` over a reference
+    ``.pt`` file and over its round trip through ``save_checkpoint``; no
+    kernel may launch."""
+    import os
+
+    import numpy as np
+    import torch
+
+    import ecologysemanticsegmentation_torch as est
+    import ecologysemanticsegmentation_torch.train as ptrain
+    from ecologysemanticsegmentation_torch import test_multiclass as tm
+    from ecologysemanticsegmentation_torch import test_multiclass_sequential_densenetloss as tms
+    from ecologysemanticsegmentation_torch.train import checkpoint as ck
+
+    organs = FLAGSHIP_ENV["ORGANS"]
+    batch_ms = []
+    make_eval_step = ptrain.make_eval_step
+
+    def timed_make_eval_step(model, apply_union_reverse=False):
+        step = make_eval_step(model, apply_union_reverse)
+
+        def timed(state, batch):
+            if batch["image"].shape[0] != TEST_IMAGES:  # --single_model, the edge analysis
+                return step(state, batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(state, batch)
+            torch.cuda.synchronize()
+            batch_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        return timed
+
+    def parse(module, flags):
+        return module.build_argparser().parse_args(["--dataset", "synthetic"] + flags)
+
+    ptrain.make_eval_step = timed_make_eval_step
+    _zero_counters()
+    try:
+        os.chdir(work / "sequential")
+        epochs = [0, 5, 10, SEQ_CLI_EPOCHS - 1]
+        results = {}
+        out = _run_cli(lambda a: results.setdefault("sweep", tms.test(a)), parse(tms, []))
+        sweep = results["sweep"]
+        if [e for e, _ in sweep] != epochs or not all(
+                d.shape == (3,) and np.isfinite(d).all() and ((d >= 0) & (d <= 1)).all()
+                for _, d in sweep):
+            raise AssertionError(f"eval: the sequential sweep scored {sweep}")
+        ranking = re.findall(r"^Epoch (\d+) : Organ : (\S+) DICE Score", out, re.M)
+        print(f"eval (sequential sweep): per-organ Dice by epoch "
+              f"{[(e, [round(float(x), 6) for x in d]) for e, d in sweep]}, ranking "
+              f"{ranking}, {len(batch_ms)} batches of {TEST_IMAGES} [{card}]", flush=True)
+        out = _run_cli(lambda a: results.setdefault("skip", tms.test(a)), parse(tms, []))
+        if results["skip"] != [] or any(f"Skipping epoch {e}! Test already done!" not in out
+                                        for e in epochs):
+            raise AssertionError("eval: a second call did not skip every epoch")
+        last = str(SEQ_CLI_EPOCHS - 1)
+        _run_cli(tms.test, parse(tms, ["--single_model", last, "--edge_analysis",
+                                       "--results_dir", "single"]))
+        overlays = sorted((Path("single") / last.zfill(4) / organs).iterdir())
+        edges = sorted((Path("single") / f"edge_analysis_epoch{last}").iterdir())
+        if len(overlays) != TEST_IMAGES * 4 * 2 or len(edges) != 2 * 2 * 3:
+            raise AssertionError(f"eval: {len(overlays)} overlay and {len(edges)} edge PNGs")
+        for png in overlays + edges:
+            shape = _read_png(png)
+            if shape != (256, 256, 3 if png in overlays else 1):
+                raise AssertionError(f"eval: {png} is {shape}")
+        print(f"eval (--single_model {last} --edge_analysis): {len(overlays)} overlay and "
+              f"{len(edges)} edge-analysis PNGs readable at 256 x 256", flush=True)
+
+        # The reference's .pt weights, and the same weights through the
+        # port's msgpack checkpoint: the two scores must be equal.
+        save_dir = Path("models") / "deeplabv3p" / "channels256" / "img256"
+        scores = {}
+        for name in ("pt", "round_trip"):
+            (work / name / save_dir).mkdir(parents=True)
+            os.chdir(work / name)
+            if name == "pt":
+                torch.save(_smp_state_dict(seed=5), save_dir / "deeplabv3p_epoch0.pt")
+            else:
+                model = est.build_model("deeplabv3plus", num_classes=3)
+                state = ck.load_checkpoint_file(
+                    str(work / "pt" / save_dir / "deeplabv3p_epoch0.pt"), tm.eval_template(model))
+                ck.save_checkpoint(str(save_dir), "deeplabv3p", 0, state)
+                del model, state
+            _run_cli(lambda a: scores.setdefault(name, tm.test(a)), parse(tm, []))
+        (ep, got), (ep_rt, want) = scores["pt"][0], scores["round_trip"][0]
+        if not (ep == ep_rt == 0 and np.isfinite(got).all() and np.array_equal(got, want)):
+            raise AssertionError(f"eval: the .pt file scored {got}, its msgpack round trip "
+                                 f"{want}")
+        print(f"eval (test_multiclass): the reference .pt file scores {got.tolist()}, equal "
+              f"to its round trip through save_checkpoint [{card}]", flush=True)
+    finally:
+        ptrain.make_eval_step = make_eval_step
+    counts = _counters()
+    if any(counts.values()):
+        raise AssertionError(f"eval launched kernels: {counts}")
+    ms = sorted(batch_ms)
+    print(f"eval: {ms[len(ms) // 2]:.3f} ms per batch of {TEST_IMAGES} at 256 px (median of "
+          f"{len(ms)} batches, min {ms[0]:.3f}, max {ms[-1]:.3f}), no kernel launched "
+          f"[{card}]", flush=True)
+
+
+def check_phase8(card: str) -> dict:
+    """Phase 8; returns the launches of the per-sample tiled-CLAHE run and
+    of the sequential CLI."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from ecologysemanticsegmentation_torch.data import augment as aug
+
+    t0 = time.perf_counter()
+    check_augment_per_sample()
+    _train_run(card, augment=True, tiled=False, per_sample=True)
+    per_sample = _train_run(card, augment=True, tiled=True, per_sample=True)
+    for tiled in ("global", "tiled"):
+        ms, peak = STEP_TIMES[f"flagship, augment=True per sample, {tiled} CLAHE"]
+        ms5, peak5 = STEP_TIMES[f"flagship, augment=True, {tiled} CLAHE"]
+        print(f"per-sample flagship ({tiled} CLAHE): {ms:.3f} ms/step, peak {peak / 2**30:.3f} "
+              f"GiB; phase 5's batch-uniform step {ms5:.3f} ms/step, peak "
+              f"{peak5 / 2**30:.3f} GiB; +{ms - ms5:.3f} ms/step [{card}]", flush=True)
+    torch.cuda.empty_cache()
+    aug.TILED_CLAHE = False  # the JAX package's default, the global CLAHE
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_phase8_"))
+    cwd, env = os.getcwd(), dict(os.environ)
+    try:
+        (work / "sequential").mkdir()
+        os.chdir(work / "sequential")
+        seq = check_sequential_cli(card)
+        torch.cuda.empty_cache()
+        check_eval_clis(card, work)
+    finally:
+        os.chdir(cwd)
+        os.environ.clear()
+        os.environ.update(env)
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phase 8 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"per_sample": per_sample, "sequential_cli": seq}
 
 
 # Phase 6: four ranks on the one card over gloo (NCCL refuses two ranks on
@@ -1895,11 +2308,16 @@ def main() -> int:
     # Phase 7: the trainer CLI, counted run by run.
     cli_counts = check_cli(card)
     torch.cuda.empty_cache()
+    # Phase 8: per-sample augmentation, the sequential CLI, the eval CLIs.
+    phase8 = check_phase8(card)
+    torch.cuda.empty_cache()
     # Phase 6: the parallel paths, counted on each rank.
     counts.update({k: v for k, v in check_parallel(card).items() if k.startswith("head_loss_shard")})
     for name, entry in report.items():
         entry["launches"] = counts[name]
         entry["cli_launches"] = cli_counts.get(name, 0)
+        entry["per_sample_launches"] = phase8["per_sample"][name]
+        entry["seq_cli_launches"] = phase8["sequential_cli"][name]
     print(json.dumps({"kernels": list(report.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

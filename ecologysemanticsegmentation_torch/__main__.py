@@ -9,6 +9,14 @@ Entry points (python -m ecologysemanticsegmentation_torch.<name>):
   train_multiclass         main trainer (DeepLabV3+ resnet34) on the card;
                            --platform cpu runs it on the CPU
   train                    alias of train_multiclass
+  train_multiclass_sequential_densenetloss
+                           sequential trainer (nested-organ loss, plateau lr)
+  test_multiclass          eval sweep over a run's checkpoints (and the
+                           reference's .pt weights): per-organ Dice, overlays
+  test_multiclass_sequential_densenetloss
+                           the sweep with union-reverse scoring and
+                           --edge_analysis
+  (each: --platform cpu runs it on the CPU)
   data.fish_dataset        dataset inspection / relative ratios
   train.profile_step       device time of the train step by layer (card)
   ops.sass_loops LIB.so    SASS instruction mix of a built kernel library

@@ -9,7 +9,7 @@ As in the JAX package, the splits are built on request by
 from __future__ import annotations
 
 from ..config import EnvConfig
-from .augment import augment_batch
+from .augment import augment_batch, augment_batch_per_sample, augment_sample
 from .fish_dataset import FishDataset
 from .loaders import (
     LOADERS,
@@ -66,6 +66,8 @@ __all__ = [
     "Batcher",
     "cuda_prefetch",
     "augment_batch",
+    "augment_batch_per_sample",
+    "augment_sample",
     "get_split_datasets",
     "get_synthetic_data",
     "materialize_to_disk",

@@ -32,6 +32,18 @@ agrees with the jitted JAX pipeline to a few bfloat16 ulps, not bitwise.
 ``AUGMENT_TILED_CLAHE=1`` selects the tile-adaptive CLAHE (8x8 tiles, 64
 bins, the kernel of ``ops/clahe_tiled.py``) over the default clip-limited
 global form; it is read once, at import, as the JAX package reads it.
+
+Per-sample granularity (the reference's, ``AUGMENT_PER_SAMPLE=1``):
+:func:`draw_augment_params_per_sample` draws every value per sample, the
+OneOf choices on the host (the batch is split by op without reading the
+device) and the rest on the device: the crop box, the flip, the rotation
+gate and degree become (B,) tensors.  :func:`apply_augment_per_sample` runs
+each OneOf op once on the samples that chose it (index, apply, scatter
+back), composes one 3x3 affine per sample (the identity where a gate is
+off) and warps the whole batch with one (B, H, W) coordinate field, so its
+launches do not grow with the batch.  Sample ``i`` of it equals
+:func:`apply_augment` on the singleton batch ``[i]`` with
+:func:`sample_augment_params` of ``i``, bitwise.
 """
 
 from __future__ import annotations
@@ -50,6 +62,10 @@ from ..ops.resize import resize_bilinear
 _LUMA = np.array([0.299, 0.587, 0.114], np.float32)
 
 TILED_CLAHE = os.environ.get("AUGMENT_TILED_CLAHE", "0").lower() not in ("0", "", "false")
+
+# AUGMENT_PER_SAMPLE=1 makes the train step draw the augmentation per sample
+# (:func:`augment_batch_per_sample`) instead of per batch.  Read at import.
+PER_SAMPLE = os.environ.get("AUGMENT_PER_SAMPLE", "0").lower() not in ("0", "", "false")
 
 
 @functools.lru_cache(maxsize=64)
@@ -102,20 +118,29 @@ def _reflect101(x: torch.Tensor, n: int) -> torch.Tensor:
     return torch.where(x >= n, period - x, x)
 
 
+def _gather(x: torch.Tensor, yi: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
+    """``x[b, yi, xi]`` for integer coordinates (H, W) shared across the
+    batch or (B, H, W), one field per sample."""
+    if yi.dim() == 2:
+        return x[:, yi, xi]
+    return x[torch.arange(x.shape[0], device=x.device)[:, None, None], yi, xi]
+
+
 def _bilinear_warp(x: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
-    """Sample the NHWC batch at float32 coordinates (H, W) shared across the
-    batch, reflect101 border; the weights are cast to x's dtype first."""
+    """Sample the NHWC batch at float32 coordinates, (H, W) shared across
+    the batch or (B, H, W) per sample, reflect101 border; the weights are
+    cast to x's dtype first."""
     h, w = x.shape[1:3]
     y0f = torch.floor(ys)
     x0f = torch.floor(xs)
-    wy = (ys - y0f)[None, :, :, None].to(x.dtype)
-    wx = (xs - x0f)[None, :, :, None].to(x.dtype)
+    wy = (ys - y0f)[..., None].to(x.dtype)
+    wx = (xs - x0f)[..., None].to(x.dtype)
 
-    def at(yi, xi):
-        return x[:, _reflect101(yi.long(), h), _reflect101(xi.long(), w)]
-
-    top = at(y0f, x0f) * (1 - wx) + at(y0f, x0f + 1) * wx
-    bot = at(y0f + 1, x0f) * (1 - wx) + at(y0f + 1, x0f + 1) * wx
+    y0, x0 = y0f.long(), x0f.long()
+    y0, y1 = _reflect101(y0, h), _reflect101(y0 + 1, h)
+    x0, x1 = _reflect101(x0, w), _reflect101(x0 + 1, w)
+    top = _gather(x, y0, x0) * (1 - wx) + _gather(x, y0, x1) * wx
+    bot = _gather(x, y1, x0) * (1 - wx) + _gather(x, y1, x1) * wx
     return top * (1 - wy) + bot * wy
 
 
@@ -123,7 +148,8 @@ def _nearest_warp(x: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) -> torch.
     """Nearest-neighbour :func:`_bilinear_warp` for masks: label values pass
     through exactly (round half to even, as ``jnp.round``)."""
     h, w = x.shape[1:3]
-    return x[:, _reflect101(torch.round(ys).long(), h), _reflect101(torch.round(xs).long(), w)]
+    return _gather(x, _reflect101(torch.round(ys).long(), h),
+                   _reflect101(torch.round(xs).long(), w))
 
 
 # ------------------------------------------------------------ color utilities
@@ -409,6 +435,10 @@ _COLOR_OPS = (
 )
 BLUR_NAMES = tuple(name for name, _, _ in _BLUR_OPS)
 COLOR_NAMES = tuple(name for name, _, _ in _COLOR_OPS)
+# The per-sample tensors every draw holds, batch first.
+_TAIL_KEYS = ("outer", "pca_gate", "pca_alpha", "shuffle_gate", "shuffle_idx", "gray_gate",
+              "hsv_gate", "hsv_dh", "hsv_ds", "hsv_dv", "clahe_gate", "clahe_clip",
+              "tone_gate", "tone_z")
 
 
 def _uniform(gen, shape, lo, hi, device):
@@ -419,17 +449,36 @@ def _gate(gen, p, b, device):
     return torch.rand((b, 1, 1, 1), generator=gen, device=device) < p
 
 
-def _crop_box(h: int, w: int, scale: float, log_ratio: float, u_top: float, u_left: float):
+def _crop_box(h: int, w: int, scale, log_ratio, u_top, u_left):
     """Random-resized-crop box (top, left, ch, cw) in float32, as the JAX
-    pipeline derives it from its four uniform draws."""
+    pipeline derives it from its four uniform draws: numbers give 0-d
+    tensors, (B,) tensors one box per sample."""
     f32 = torch.float32
-    area = torch.tensor(scale, dtype=f32) * h * w
-    ratio = torch.exp(torch.tensor(log_ratio, dtype=f32))
+    area = torch.as_tensor(scale, dtype=f32) * h * w
+    ratio = torch.exp(torch.as_tensor(log_ratio, dtype=f32))
     cw = torch.sqrt(area * ratio).clamp(8.0, w)
     ch = torch.sqrt(area / ratio).clamp(8.0, h)
-    top = torch.tensor(u_top, dtype=f32) * (h - ch)
-    left = torch.tensor(u_left, dtype=f32) * (w - cw)
-    return tuple(float(v) for v in (top, left, ch, cw))
+    top = torch.as_tensor(u_top, dtype=f32) * (h - ch)
+    left = torch.as_tensor(u_left, dtype=f32) * (w - cw)
+    return top, left, ch, cw
+
+
+def _draw_photometric(device_gen: torch.Generator, b: int, dev) -> dict:
+    """The per-sample draws of the ops after the warp (PCA to tone curve)."""
+    params = {"pca_gate": _gate(device_gen, 0.3, b, dev),
+              "pca_alpha": torch.randn((b, 3), generator=device_gen, device=dev),
+              "shuffle_gate": _gate(device_gen, 0.5, b, dev),
+              "shuffle_idx": torch.randint(0, 6, (b,), generator=device_gen, device=dev),
+              "gray_gate": _gate(device_gen, 0.3, b, dev),
+              "hsv_gate": _gate(device_gen, 0.4, b, dev)}
+    params["hsv_dh"] = _uniform(device_gen, (b, 1, 1), -60.0, 60.0, dev) / 180.0
+    params["hsv_ds"] = _uniform(device_gen, (b, 1, 1), -60.0, 60.0, dev) / 255.0
+    params["hsv_dv"] = _uniform(device_gen, (b, 1, 1), -30.0, 30.0, dev) / 255.0
+    params["clahe_gate"] = _gate(device_gen, 0.7, b, dev)
+    params["clahe_clip"] = _uniform(device_gen, (b,), 1.0, 4.0, dev)
+    params["tone_gate"] = _gate(device_gen, 0.5, b, dev)
+    params["tone_z"] = torch.randn((b, 1, 1, 1), generator=device_gen, device=dev)
+    return params
 
 
 def draw_augment_params(host_gen: torch.Generator, device_gen: torch.Generator,
@@ -460,27 +509,120 @@ def draw_augment_params(host_gen: torch.Generator, device_gen: torch.Generator,
 
     scale = host_u(0.08, 1.0)
     log_ratio = host_u(math.log(0.75), math.log(4 / 3))
-    params["crop_box"] = _crop_box(h, w, scale, log_ratio, host_u(), host_u())
+    box = _crop_box(h, w, scale, log_ratio, host_u(), host_u())
+    params["crop_box"] = tuple(float(v) for v in box)
     params["crop_gate"] = host_u() < 0.7 * 0.3
     params["flip_gate"] = host_u() < 0.7 * 0.5
     degree = float(torch.randint(0, 90, (), generator=host_gen))
     params["degree"] = 0.0 if host_u() < 0.2 else degree
     params["rot_gate"] = host_u() < 0.4
-
-    params["pca_gate"] = _gate(device_gen, 0.3, b, dev)
-    params["pca_alpha"] = torch.randn((b, 3), generator=device_gen, device=dev)
-    params["shuffle_gate"] = _gate(device_gen, 0.5, b, dev)
-    params["shuffle_idx"] = torch.randint(0, 6, (b,), generator=device_gen, device=dev)
-    params["gray_gate"] = _gate(device_gen, 0.3, b, dev)
-    params["hsv_gate"] = _gate(device_gen, 0.4, b, dev)
-    params["hsv_dh"] = _uniform(device_gen, (b, 1, 1), -60.0, 60.0, dev) / 180.0
-    params["hsv_ds"] = _uniform(device_gen, (b, 1, 1), -60.0, 60.0, dev) / 255.0
-    params["hsv_dv"] = _uniform(device_gen, (b, 1, 1), -30.0, 30.0, dev) / 255.0
-    params["clahe_gate"] = _gate(device_gen, 0.7, b, dev)
-    params["clahe_clip"] = _uniform(device_gen, (b,), 1.0, 4.0, dev)
-    params["tone_gate"] = _gate(device_gen, 0.5, b, dev)
-    params["tone_z"] = torch.randn((b, 1, 1, 1), generator=device_gen, device=dev)
+    params.update(_draw_photometric(device_gen, b, dev))
     return params
+
+
+def draw_augment_params_per_sample(host_gen: torch.Generator, device_gen: torch.Generator,
+                                   b: int, h: int, w: int) -> dict:
+    """Every random value of one :func:`apply_augment_per_sample` call, each
+    drawn per sample.  The OneOf choices are (B,) int64 tensors on the host
+    from ``host_gen``, so the batch splits by op without a read from the
+    device; every other value is a tensor on ``device_gen``'s device: the
+    gates, each op's parameters for every sample (``params[block][op]``),
+    the crop box as four (B,) float32 tensors, and the (B,) flip and
+    rotation gates and degrees."""
+    dev = device_gen.device
+
+    def u(shape, lo=0.0, hi=1.0):
+        return _uniform(device_gen, shape, lo, hi, dev)
+
+    params = {"outer": _gate(device_gen, 0.7, b, dev)}
+    for block, ops in (("blur", _BLUR_OPS), ("color", _COLOR_OPS)):
+        params[f"{block}_gate"] = _gate(device_gen, 0.4, b, dev)
+        params[f"{block}_choice"] = torch.randint(0, len(ops), (b,), generator=host_gen)
+        params[block] = {name: {k: u((b, 1, 1, 1), lo, hi).to(torch.bfloat16)
+                                for k, lo, hi in spec} for name, _, spec in ops}
+    params["blur"]["fog"]["field"] = u((b, max(h // 16, 1), max(w // 16, 1), 1))
+    params["color"]["color_jitter"]["hshift"] = u((b, 1, 1), -0.4, 0.4)
+
+    params["crop_box"] = _crop_box(h, w, u((b,), 0.08, 1.0),
+                                   u((b,), math.log(0.75), math.log(4 / 3)), u((b,)), u((b,)))
+    params["crop_gate"] = u((b,)) < 0.7 * 0.3
+    params["flip_gate"] = u((b,)) < 0.7 * 0.5
+    degree = torch.randint(0, 90, (b,), generator=device_gen, device=dev).float()
+    params["degree"] = torch.where(u((b,)) < 0.2, 0.0, degree)
+    params["rot_gate"] = u((b,)) < 0.4
+    params.update(_draw_photometric(device_gen, b, dev))
+    return params
+
+
+def sample_augment_params(params: dict, i: int) -> dict:
+    """Sample ``i`` of per-sample draws (:func:`draw_augment_params_per_sample`)
+    as the batch-uniform draws of the singleton batch ``[i]``
+    (:func:`draw_augment_params`'s format)."""
+    one = slice(i, i + 1)
+    out = {}
+    for block, names in (("blur", BLUR_NAMES), ("color", COLOR_NAMES)):
+        name = names[int(params[f"{block}_choice"][i])]
+        out[f"{block}_op"] = name
+        out[f"{block}_gate"] = params[f"{block}_gate"][one]
+        out[block] = {k: v[one] for k, v in params[block][name].items()}
+    out["crop_box"] = tuple(float(v[i]) for v in params["crop_box"])
+    for k in ("crop_gate", "flip_gate", "rot_gate"):
+        out[k] = bool(params[k][i])
+    out["degree"] = float(params["degree"][i])
+    out.update({k: params[k][one] for k in _TAIL_KEYS})
+    return out
+
+
+def _mm3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of (..., 3, 3) matrices, each entry summed k = 0, 1, 2 in
+    order, as the JAX dot of the 3x3 affines."""
+    return (a[..., :, 0:1] * b[..., 0:1, :] + a[..., :, 1:2] * b[..., 1:2, :]
+            + a[..., :, 2:3] * b[..., 2:3, :])
+
+
+def _affines(h: int, w: int, top, left, ch, cw, degree, device, batch=()):
+    """The crop, hflip and rotate affines (output coords -> input coords)
+    in float32 on ``device``, (*batch, 3, 3): each entry computed with the
+    same float32 operations from 0-d or (B,) tensors."""
+    f32 = torch.float32
+
+    def entry(v):
+        # A number is filled on the device: a copy of it from pageable host
+        # memory would wait for the device's queue.
+        if isinstance(v, torch.Tensor):
+            return v.expand(batch)
+        return torch.full(batch, v, dtype=f32, device=device)
+
+    def mat(rows):
+        return torch.stack([torch.stack([entry(v) for v in row], -1) for row in rows], -2)
+
+    theta = torch.as_tensor(degree, dtype=f32, device=device) * (np.pi / 180)  # jnp.deg2rad
+    cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
+    cos, sin = torch.cos(theta), torch.sin(theta)
+    m_rot = mat([[cos, sin, cy - cos * cy - sin * cx],
+                 [-sin, cos, cx + sin * cy - cos * cx],
+                 [0.0, 0.0, 1.0]])
+    m_flip = mat([[1.0, 0.0, 0.0], [0.0, -1.0, w - 1.0], [0.0, 0.0, 1.0]])
+    top, left, ch, cw = (torch.as_tensor(v, dtype=f32, device=device)
+                         for v in (top, left, ch, cw))
+    m_crop = mat([[ch / h, 0.0, top + 0.5 * ch / h - 0.5],
+                  [0.0, cw / w, left + 0.5 * cw / w - 0.5],
+                  [0.0, 0.0, 1.0]])
+    return m_crop, m_flip, m_rot
+
+
+def _coords(m, h: int, w: int, device):
+    """Source coordinates ``m @ (y, x, 1)`` of every output pixel: ``m`` is
+    a list of the rows of one affine (an (H, W) field) or a (B, 3, 3)
+    tensor (a (B, H, W) field)."""
+    f32 = torch.float32
+    yy = torch.arange(h, dtype=f32, device=device)[:, None].expand(h, w)
+    xx = torch.arange(w, dtype=f32, device=device)[None, :].expand(h, w)
+    if isinstance(m, torch.Tensor):
+        m = m[:, :, :, None, None]
+        return (m[:, 0, 0] * yy + m[:, 0, 1] * xx + m[:, 0, 2],
+                m[:, 1, 0] * yy + m[:, 1, 1] * xx + m[:, 1, 2])
+    return m[0][0] * yy + m[0][1] * xx + m[0][2], m[1][0] * yy + m[1][1] * xx + m[1][2]
 
 
 def _composed_warp_coords(h, w, crop_gate, crop_box, flip_gate, rot_gate, degree, device):
@@ -488,42 +630,72 @@ def _composed_warp_coords(h, w, crop_gate, crop_box, flip_gate, rot_gate, degree
     op's 3x3 matrix gated to the identity.  The matrices are float32 on the
     host, multiplied term by term in the JAX dot's order; the field is
     float32 on ``device``."""
-    f32 = torch.float32
+    m_crop, m_flip, m_rot = _affines(h, w, *crop_box, degree, "cpu")
+    eye = torch.eye(3, dtype=torch.float32)
+    m = _mm3(_mm3(m_crop if crop_gate else eye, m_flip if flip_gate else eye),
+             m_rot if rot_gate else eye)
+    return _coords(m.tolist(), h, w, device)
 
-    def mat(rows):
-        return torch.stack([torch.stack([torch.as_tensor(v, dtype=f32) for v in row])
-                            for row in rows])
 
-    def mm(a, b):  # (a @ b) with each entry summed k = 0, 1, 2 in order
-        return a[:, 0:1] * b[0:1, :] + a[:, 1:2] * b[1:2, :] + a[:, 2:3] * b[2:3, :]
+def _composed_warp_coords_per_sample(h, w, crop_gate, crop_box, flip_gate, rot_gate, degree):
+    """:func:`_composed_warp_coords` with one affine per sample: (B,) gates,
+    crop box and degrees on the device -> a (B, H, W) field.  A sample whose
+    gates are all off gets the identity, exactly."""
+    dev = degree.device
+    m_crop, m_flip, m_rot = _affines(h, w, *crop_box, degree, dev, batch=degree.shape)
+    eye = torch.eye(3, dtype=torch.float32, device=dev)
 
-    eye = torch.eye(3, dtype=f32)
-    m_rot, m_flip, m_crop = eye, eye, eye
-    if rot_gate:
-        theta = torch.tensor(degree, dtype=f32) * (np.pi / 180)  # jnp.deg2rad
-        cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
-        cos, sin = torch.cos(theta), torch.sin(theta)
-        m_rot = mat([[cos, sin, cy - cos * cy - sin * cx],
-                     [-sin, cos, cx + sin * cy - cos * cx],
-                     [0.0, 0.0, 1.0]])
-    if flip_gate:
-        m_flip = mat([[1.0, 0.0, 0.0], [0.0, -1.0, w - 1.0], [0.0, 0.0, 1.0]])
-    if crop_gate:
-        top, left, ch, cw = (torch.tensor(v, dtype=f32) for v in crop_box)
-        m_crop = mat([[ch / h, 0.0, top + 0.5 * ch / h - 0.5],
-                      [0.0, cw / w, left + 0.5 * cw / w - 0.5],
-                      [0.0, 0.0, 1.0]])
-    m = mm(mm(m_crop, m_flip), m_rot).tolist()
-    yy = torch.arange(h, dtype=f32, device=device)[:, None].expand(h, w)
-    xx = torch.arange(w, dtype=f32, device=device)[None, :].expand(h, w)
-    ys = m[0][0] * yy + m[0][1] * xx + m[0][2]
-    xs = m[1][0] * yy + m[1][1] * xx + m[1][2]
-    return ys, xs
+    def gated(gate, m):
+        return torch.where(gate[:, None, None], m, eye)
+
+    m = _mm3(_mm3(gated(crop_gate, m_crop), gated(flip_gate, m_flip)), gated(rot_gate, m_rot))
+    return _coords(m, h, w, dev)
 
 
 def _one_of(gate, ops, name, params, x):
     fn = {n: f for n, f, _ in ops}[name]
     return torch.where(gate, fn(x, **params).to(x.dtype), x)
+
+
+def _host_index(select: torch.Tensor, device: torch.device) -> torch.Tensor | None:
+    """The indices where the host bool tensor ``select`` holds, on ``device``
+    (None if there are none); to a card through pinned memory, without
+    waiting for the device."""
+    idx = select.nonzero().flatten()
+    if idx.numel() == 0:
+        return None
+    if device.type == "cuda":
+        return idx.pin_memory().to(device, non_blocking=True)
+    return idx.to(device)
+
+
+def _one_of_per_sample(gate, ops, choice, params, x):
+    """Each op of the block once, on the samples whose ``choice`` it is
+    (index, apply, scatter back); ``params[op]`` holds every sample's."""
+    out = torch.empty_like(x)
+    for k, (name, fn, _) in enumerate(ops):
+        idx = _host_index(choice == k, x.device)
+        if idx is None:
+            continue
+        sub = {p: v.index_select(0, idx) for p, v in params[name].items()}
+        out.index_copy_(0, idx, fn(x.index_select(0, idx), **sub).to(x.dtype))
+    return torch.where(gate, out, x)
+
+
+def _photometric_tail(img: torch.Tensor, params: dict, tiled_clahe: bool) -> torch.Tensor:
+    """The per-sample ops after the warp, then the clip to [0, 1]."""
+    outer = params["outer"]
+    img = torch.where(outer & params["pca_gate"], _fancy_pca(img, params["pca_alpha"]), img)
+    img = torch.where(outer & params["shuffle_gate"],
+                      _channel_shuffle(img, params["shuffle_idx"]), img)
+    img = torch.where(outer & params["gray_gate"], _to_gray(img), img)
+
+    img = torch.where(params["hsv_gate"],
+                      _hsv_shift(img, params["hsv_dh"], params["hsv_ds"], params["hsv_dv"]), img)
+    clahe = _clahe_tiled if tiled_clahe else _clahe
+    img = torch.where(params["clahe_gate"], clahe(img, params["clahe_clip"]), img)
+    img = torch.where(params["tone_gate"], _tone_curve(img, params["tone_z"]), img)
+    return img.clamp(0.0, 1.0)
 
 
 @torch.no_grad()
@@ -537,11 +709,10 @@ def apply_augment(images: torch.Tensor, masks: torch.Tensor, params: dict,
         tiled_clahe = TILED_CLAHE
     _, h, w, _ = images.shape
     img, mask = images.to(torch.bfloat16), masks.to(torch.bfloat16)
-    outer = params["outer"]
 
     x = _one_of(params["blur_gate"], _BLUR_OPS, params["blur_op"], params["blur"], img)
     x = _one_of(params["color_gate"], _COLOR_OPS, params["color_op"], params["color"], x)
-    img = torch.where(outer, x, img)
+    img = torch.where(params["outer"], x, img)
 
     if params["crop_gate"] or params["rot_gate"]:
         ys, xs = _composed_warp_coords(h, w, params["crop_gate"], params["crop_box"],
@@ -551,18 +722,35 @@ def apply_augment(images: torch.Tensor, masks: torch.Tensor, params: dict,
     elif params["flip_gate"]:
         # flip-only steps: a reversal, not a 4-gather warp
         img, mask = img.flip(2), mask.flip(2)
+    return _photometric_tail(img, params, tiled_clahe), mask
 
-    img = torch.where(outer & params["pca_gate"], _fancy_pca(img, params["pca_alpha"]), img)
-    img = torch.where(outer & params["shuffle_gate"],
-                      _channel_shuffle(img, params["shuffle_idx"]), img)
-    img = torch.where(outer & params["gray_gate"], _to_gray(img), img)
 
-    img = torch.where(params["hsv_gate"],
-                      _hsv_shift(img, params["hsv_dh"], params["hsv_ds"], params["hsv_dv"]), img)
-    clahe = _clahe_tiled if tiled_clahe else _clahe
-    img = torch.where(params["clahe_gate"], clahe(img, params["clahe_clip"]), img)
-    img = torch.where(params["tone_gate"], _tone_curve(img, params["tone_z"]), img)
-    return img.clamp(0.0, 1.0), mask
+@torch.no_grad()
+def apply_augment_per_sample(images: torch.Tensor, masks: torch.Tensor, params: dict,
+                             tiled_clahe: bool | None = None):
+    """:func:`apply_augment` with per-sample values
+    (:func:`draw_augment_params_per_sample`): the OneOf blocks split the
+    batch by op, and one (B, H, W) coordinate field warps every sample,
+    the identity where its gates are off (integer coordinates give a
+    fraction of 0, so an identity warp changes nothing).  Sample ``i``
+    equals :func:`apply_augment` of the singleton batch ``[i]`` with
+    ``sample_augment_params(params, i)``."""
+    if tiled_clahe is None:
+        tiled_clahe = TILED_CLAHE
+    _, h, w, _ = images.shape
+    img, mask = images.to(torch.bfloat16), masks.to(torch.bfloat16)
+
+    x = _one_of_per_sample(params["blur_gate"], _BLUR_OPS, params["blur_choice"],
+                           params["blur"], img)
+    x = _one_of_per_sample(params["color_gate"], _COLOR_OPS, params["color_choice"],
+                           params["color"], x)
+    img = torch.where(params["outer"], x, img)
+
+    ys, xs = _composed_warp_coords_per_sample(h, w, params["crop_gate"], params["crop_box"],
+                                              params["flip_gate"], params["rot_gate"],
+                                              params["degree"])
+    img, mask = _bilinear_warp(img, ys, xs), _nearest_warp(mask, ys, xs)
+    return _photometric_tail(img, params, tiled_clahe), mask
 
 
 def augment_batch(gens, images: torch.Tensor, masks: torch.Tensor):
@@ -572,3 +760,22 @@ def augment_batch(gens, images: torch.Tensor, masks: torch.Tensor):
     host_gen, device_gen = gens
     b, h, w, _ = images.shape
     return apply_augment(images, masks, draw_augment_params(host_gen, device_gen, b, h, w))
+
+
+def augment_sample(gens, img: torch.Tensor, mask: torch.Tensor):
+    """Single-sample convenience wrapper of :func:`augment_batch`: HWC in,
+    HWC float32 out."""
+    imgs, masks = augment_batch(gens, img[None], mask[None])
+    return imgs[0].float(), masks[0].float()
+
+
+def augment_batch_per_sample(gens, images: torch.Tensor, masks: torch.Tensor):
+    """:func:`augment_batch` with per-sample granularity, the reference's:
+    :func:`draw_augment_params_per_sample` then
+    :func:`apply_augment_per_sample`.  ``gens`` is ``(host_gen,
+    device_gen)``: the host generator draws the OneOf choices, the device
+    generator everything else."""
+    host_gen, device_gen = gens
+    b, h, w, _ = images.shape
+    params = draw_augment_params_per_sample(host_gen, device_gen, b, h, w)
+    return apply_augment_per_sample(images, masks, params)

@@ -13,7 +13,8 @@ package's ``TrainState``: ``{step, params, batch_stats, opt_state}`` with
 with msgpack (:mod:`._msgpack`; msgpack itself need not be installed).
 The JAX package's ``load_recent_model`` restores a file of the port's, and
 the port restores one of the JAX package's (:mod:`..models.from_flax` maps
-the parameters and the optimizer state).
+the parameters and the optimizer state).  :func:`load_checkpoint_file` also
+reads the reference's ``.pt`` weights.
 """
 
 from __future__ import annotations
@@ -132,15 +133,34 @@ def load_recent_model(save_dir: str, template_state, expt_name: str,
 
 def load_checkpoint_file(path: str, template_state):
     """Load one checkpoint into ``template_state``; None when it is corrupt
-    or of another architecture."""
-    if path.endswith((".pt", ".pth")):
-        raise NotImplementedError("reading the reference's .pt checkpoints comes with the "
-                                  "eval CLI (ROADMAP queue 1, item 5)")
+    or of another architecture (the eval sweep's skip contract).
+
+    ``.pt``/``.pth`` files are the reference's PyTorch checkpoints
+    (``torch.save(net.state_dict())`` of an smp DeepLabV3Plus, bare or
+    under a ``"state_dict"`` key): their weights and BatchNorm statistics
+    are mapped by :func:`..models.import_torch.smp_checkpoint_to_variables`;
+    the step and the optimizer stay the template's."""
     try:
+        if path.endswith((".pt", ".pth")):
+            return _load_torch_checkpoint(path, template_state)
         return _read(path, template_state)
     except Exception:
         traceback.print_exc()
         return None
+
+
+def _load_torch_checkpoint(path: str, template_state):
+    import torch
+
+    from ..models.import_torch import smp_checkpoint_to_variables
+
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    variables = smp_checkpoint_to_variables(sd)
+    _check_tree(to_flax_variables(template_state.model.state_dict()), variables)
+    template_state.model.load_state_dict(from_flax_variables(variables))
+    return template_state
 
 
 def make_checkpointer(backend: str, save_dir: str, expt_name: str):

@@ -2,12 +2,14 @@
 
     python3 -m ecologysemanticsegmentation_torch.train.profile_step
     AUGMENT_TILED_CLAHE=1 python3 -m ecologysemanticsegmentation_torch.train.profile_step
+    AUGMENT_PER_SAMPLE=1 python3 -m ecologysemanticsegmentation_torch.train.profile_step
 
 For each of the flagship step (DeepLabV3+ resnet34 at full width, C = 3,
 the fused head loss), the sequential trainer's step (C = 3, full
 resolution, ``composite_mode="sequential"``) and the single-organ step
 (C = 1, full resolution), all with ``augment=True`` (CLAHE form from
-``AUGMENT_TILED_CLAHE``): builds the model, runs three warm-up steps on a
+``AUGMENT_TILED_CLAHE``, draws per batch, or per sample under
+``AUGMENT_PER_SAMPLE=1``): builds the model, runs three warm-up steps on a
 fixed random batch (batch 128 at 256 px, random weights from seed 0), then
 one step under the profiler that is not recorded, then profiles three steps
 and prints the device time per step of each layer (kernels grouped by
@@ -15,7 +17,7 @@ name), the device's busy share of the wall time, and the largest kernels.
 Every step's profile sees the same augmentation draws (the same seeds,
 the same number of steps before it), so the steps compare like with like.
 The augmentation's own device time comes from a profile of
-``augment_batch`` alone on the flagship's batch, with generators of its
+the step's ``augment_batch`` alone on the flagship's batch, with generators of its
 own, since its kernels share names with the model's.  Needs a CUDA device.
 """
 
@@ -105,11 +107,13 @@ def _batch(organs: int) -> dict:
 def main() -> None:
     from .. import build_model
     from ..data import augment as aug
+    from . import trainer
     from .trainer import create_train_state, make_optimizer, make_train_step
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    clahe = "tiled" if aug.TILED_CLAHE else "global"
+    clahe = ("tiled" if aug.TILED_CLAHE else "global") + " CLAHE, draws per " + (
+        "sample" if trainer.augment_batch is aug.augment_batch_per_sample else "batch")
     gates = [1.0, 1.0, 1.0]
     for what, organs, mode, lowres in PROFILED:
         model = build_model("deeplabv3plus", num_classes=organs, upsample_head=not lowres)
@@ -128,10 +132,10 @@ def main() -> None:
             aug_rng = (torch.Generator().manual_seed(4),
                        torch.Generator(device="cuda").manual_seed(5))
             aug_kernels, aug_wall = _profiled(
-                lambda: aug.augment_batch(aug_rng, batch["image"], batch["label"]), STEPS)
+                lambda: trainer.augment_batch(aug_rng, batch["image"], batch["label"]), STEPS)
             aug_busy = sum(e.self_device_time_total for e in aug_kernels) / 1e3 / STEPS
             aug_launches = sum(e.count for e in aug_kernels) // STEPS
-            print(f"profile, augment_batch alone ({clahe} CLAHE), batch {BATCH_SIZE} at {IMG} "
+            print(f"profile, augment_batch alone ({clahe}), batch {BATCH_SIZE} at {IMG} "
                   f"px [{card}]: device {aug_busy:.3f} ms of {aug_wall:.3f} ms/call wall, "
                   f"{aug_launches} kernel launches/call", flush=True)
             _print_top(aug_kernels, STEPS, "call")
@@ -146,7 +150,7 @@ def main() -> None:
             cat = _category(e.key)
             by_cat[cat] = by_cat.get(cat, 0.0) + e.self_device_time_total / 1e3 / STEPS
         busy = sum(by_cat.values())
-        print(f"profile, augmented {what} step ({clahe} CLAHE), batch {BATCH_SIZE} at {IMG} px, "
+        print(f"profile, augmented {what} step ({clahe}), batch {BATCH_SIZE} at {IMG} px, "
               f"C = {organs}, {STEPS} steps under torch.profiler [{card}]: device busy "
               f"{busy:.3f} ms of {wall_ms:.3f} ms/step wall ({100 * busy / wall_ms:.1f}%), "
               f"{sum(e.count for e in kernels) // STEPS} kernel launches/step", flush=True)

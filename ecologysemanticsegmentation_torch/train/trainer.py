@@ -23,7 +23,9 @@ from typing import Callable
 import torch
 from torch import nn
 
-from ..data.augment import augment_batch
+from ..data import augment as _augment
+from ..data.augment import augment_batch as _augment_batch_uniform
+from ..data.augment import augment_batch_per_sample
 from ..losses import (
     LOSS_NAMES,
     binary_cross_entropy,
@@ -39,6 +41,12 @@ from ..models.common import BatchNorm2d
 from ..ops.loss_sums import spatial_mesh_context
 from ..parallel.collectives import all_reduce_grads
 from ..parallel.mesh import batch_block, row_block
+
+# AUGMENT_PER_SAMPLE=1 (read at import, as the JAX trainer reads it) makes
+# the step draw the augmentation per sample, the reference's granularity;
+# the default draws the geometry and the OneOf choices once per batch.  A
+# module attribute, looked up at each call, so a caller may rebind it.
+augment_batch = augment_batch_per_sample if _augment.PER_SAMPLE else _augment_batch_uniform
 
 
 @dataclasses.dataclass
@@ -171,9 +179,11 @@ def make_train_step(model: nn.Module, tx, composite_mode: str = "none", augment:
     ``augment=True`` it is the pair ``(host_gen, device_gen)``: a CPU
     generator for the augmentation's batch-uniform draws and the device
     generator, which draws the augmentation's per-sample values and then
-    the dropout masks.  Augmentation (:func:`..data.augment.augment_batch`,
-    CLAHE form from ``AUGMENT_TILED_CLAHE``) runs on the device before label
-    prep, as in the JAX step.
+    the dropout masks.  Augmentation (this module's ``augment_batch``:
+    :func:`..data.augment.augment_batch`, or
+    :func:`..data.augment.augment_batch_per_sample` under
+    ``AUGMENT_PER_SAMPLE=1``; CLAHE form from ``AUGMENT_TILED_CLAHE``) runs
+    on the device before label prep, as in the JAX step.
 
     ``lowres_head=False`` (a model built with ``upsample_head=True``): the
     loss is ``composite_mode``'s 7-tuple of ``sigmoid(logits)`` at full

@@ -102,7 +102,8 @@ def _unported(args) -> str | None:
     return None
 
 
-def _device(platform: str | None):
+def device_of(platform: str | None):
+    """The device of ``--platform``: the card unless ``cpu``."""
     from . import resolve_device
 
     if platform not in (None, "cpu", "gpu", "cuda"):
@@ -162,7 +163,7 @@ def train(args=None):
     )
     from .utils import MetricsLogger
 
-    device = _device(args.platform)
+    device = device_of(args.platform)
     cfg = EnvConfig.from_env()
     print(f"Organs: {list(cfg.organs)}")
     save_dir = cfg.checkpoint_dir(args.models_dir)
