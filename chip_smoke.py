@@ -5,6 +5,7 @@
     python3 chip_smoke.py --mutants  # only: the gradient checks against broken kernels
     python3 chip_smoke.py --loss-sums-times [TREE]  # only: the loss-sums kernels' times
     python3 chip_smoke.py --clahe-times [TREE]      # only: the tiled-CLAHE apply's times
+    python3 chip_smoke.py --zoo      # only: build the kernels, then phase 9
 
 Phases, each fatal on failure (an exception ends the run with a non-zero
 exit code before the result line is printed):
@@ -117,7 +118,32 @@ exit code before the result line is printed):
    ``--single_model`` with ``--edge_analysis`` writing readable PNGs) and
    ``test_multiclass`` over a seeded synthetic smp-layout ``.pt`` state
    dict, which must score exactly as its round trip through the port's
-   ``save_checkpoint`` does; the eval's ms per batch, and no kernel launch.
+   ``save_checkpoint`` does; the eval's ms per batch, and no kernel launch;
+9. the rest of the model zoo (runs after phase 8, before phase 6): (a) a
+   small step (float64 models, 64 px, batch 4, unaugmented, dropout 0
+   where the model takes it as an argument) on the card against the CPU at
+   phase 3's float64 tolerance for the VGG U-Net (``max_channels`` 256,
+   deep supervision), the ResNet U-Net with resnet34 and resnet50,
+   DeepLabV3+ resnet50 (the low-resolution head), the depthwise wrapper
+   (``composite_mode="sequential"``) and the EfficientNetV2-S U-Net at
+   depth 0.2 (its stochastic-depth masks, p fixed inside, drawn on both
+   sides from one seeded CPU generator); (b) each of them at full width
+   (the EfficientNet at its full depth), batch 128 at 256 px, C = 3,
+   augmented with the global CLAHE, bf16 autocast, 13 steps from seed 0,
+   counters zeroed just before and read just after: the loss sums 13 + 13
+   (26 + 26 for the depthwise sequential step), the head loss 13 + 13 for
+   DeepLabV3+ resnet50, no other kernel's; the loss finite and falling;
+   ms/step and peak memory; the VGG U-Net also with ``remat`` from the same
+   weights, batch and seeds, whose first loss and gradients must equal the
+   plain run's within phase 3's bf16 step tolerance; (c) in a temporary
+   directory, ``train_multiclass --model vgg_unet --deepsupervision`` with
+   phase 7's flags and data for 4 epochs (loss sums 1 + 1 a step, the
+   checkpoints of epochs 0 and 3, the last restored leaf by leaf,
+   ``metrics.csv``), ``test_multiclass --deepsupervision`` over them (Dice
+   finite in [0, 1], no kernel launch) and
+   ``train_multiclass_sequential_densenetloss --depthwiseconv`` for 3
+   epochs (loss sums 2 + 2 a step).  ``--zoo`` builds the kernels and runs
+   this phase alone.
 
 The device time of the step by layer is not measured here:
 ``python3 -m ecologysemanticsegmentation_torch.train.profile_step`` does that.
@@ -125,8 +151,9 @@ The device time of the step by layer is not measured here:
 The line before the last holds the card's name and power limit; the
 ``kernels`` JSON line comes before it (each kernel's ``launches`` in the
 phase 5 or 6 run that exercises it, its ``cli_launches`` in phase 7, its
-``per_sample_launches`` in phase 8's per-sample tiled-CLAHE run and its
-``seq_cli_launches`` in phase 8's sequential CLI);
+``per_sample_launches`` in phase 8's per-sample tiled-CLAHE run, its
+``seq_cli_launches`` in phase 8's sequential CLI and its ``zoo_launches``
+summed over phase 9's counted runs);
 the last line is the device result.
 Without a CUDA device, or without the rest of the repository beside it, the
 script exits non-zero and prints no result.
@@ -1987,6 +2014,311 @@ def check_phase8(card: str) -> dict:
     return {"per_sample": per_sample, "sequential_cli": seq}
 
 
+# Phase 9: the rest of the model zoo.  (a) Small parity steps: float64
+# models, 64 px, batch 4, dropout 0 where the JAX module takes it as an
+# argument, unaugmented, card (kernels) against CPU (plain versions) at
+# FULLRES_STEP_RTOL.  The EfficientNet U-Net fixes its stochastic-depth p
+# inside (0.05): both runs draw its masks from one seeded CPU generator.
+# (what, model arguments of build_model or "effnet", composite_mode,
+# lowres_head, deep supervision)
+ZOO_SMALL = [
+    ("vgg_unet, max_channels 256, deep supervision",
+     dict(name="vgg_unet", max_channels=256, deepsupervision=True), "none", False, True),
+    ("unet, resnet34", dict(name="unet"), "none", False, False),
+    ("unet, resnet50", dict(name="unet", encoder_name="resnet50"), "none", False, False),
+    ("deeplabv3plus, resnet50, low-resolution head",
+     dict(name="deeplabv3plus", encoder_name="resnet50", upsample_head=False), "none", True,
+     False),
+    ("deeplabv3plus_depthwise, sequential",
+     dict(name="deeplabv3plus_depthwise"), "sequential", False, False),
+    ("efficientnet_v2s_unet, depth 0.2", "effnet", "none", False, False),
+]
+# (b) Full-width steps on the flagship's data (batch 128 at 256 px, C = 3,
+# the global CLAHE, bf16 autocast, 13 steps): (what, build_model arguments,
+# composite_mode, lowres_head, deep supervision).  The VGG U-Net runs at the
+# CLI's default max_channels 256, plain and with remat from the same
+# weights, batch and generator seeds.
+ZOO_FULL = [
+    ("vgg_unet, max_channels 256, deep supervision",
+     dict(name="vgg_unet", max_channels=256, deepsupervision=True), "none", False, True),
+    ("vgg_unet, max_channels 256, deep supervision, remat",
+     dict(name="vgg_unet", max_channels=256, deepsupervision=True, remat=True), "none", False,
+     True),
+    ("unet, resnet34", dict(name="unet"), "none", False, False),
+    ("unet, resnet50", dict(name="unet", encoder_name="resnet50"), "none", False, False),
+    ("deeplabv3plus, resnet50, low-resolution head",
+     dict(name="deeplabv3plus", encoder_name="resnet50", upsample_head=False), "none", True,
+     False),
+    ("deeplabv3plus_depthwise, sequential", dict(name="deeplabv3plus_depthwise"), "sequential",
+     False, False),
+    ("efficientnet_v2s_unet", dict(name="efficientnet_v2s_unet"), "none", False, False),
+]
+ZOO_CLI_EPOCHS = 4     # train_multiclass --model vgg_unet --deepsupervision
+ZOO_SEQ_EPOCHS = 3     # train_multiclass_sequential_densenetloss --depthwiseconv
+
+
+def _zoo_model(spec, device: str, dtype=None):
+    """A phase-9 model: ``build_model`` of ``spec``, or the EfficientNet U-Net
+    at depth 0.2; with ``dtype``, dropout 0 where the model takes it."""
+    import torch
+
+    from ecologysemanticsegmentation_torch import models
+
+    if spec == "effnet":
+        model = models.EfficientNetV2SUNet(3, depth_multiplier=0.2)
+    elif dtype is None:
+        return models.build_model(num_classes=3, device=device, **spec)
+    elif spec["name"] == "vgg_unet":
+        model = models.VGGUNet(3, spec["max_channels"], dropout_p=0.0,
+                               deepsupervision=spec["deepsupervision"])
+    elif spec["name"] == "deeplabv3plus":
+        model = models.DeepLabV3Plus(3, spec["encoder_name"], aspp_dropout=0.0,
+                                     upsample_head=spec["upsample_head"])
+    elif spec["name"] == "deeplabv3plus_depthwise":
+        model = models.DeepLabV3PlusDepthwise(3, aspp_dropout=0.0)
+    else:
+        model = models.build_model(num_classes=3, device="cpu", **spec)
+    return model.to(device=device, dtype=dtype, memory_format=torch.channels_last)
+
+
+def check_zoo_small_steps() -> None:
+    """Phase 9 (a): each model's small step on the card against the CPU."""
+    import torch
+
+    import ecologysemanticsegmentation_torch as est
+
+    for what, spec, mode, lowres, deepsup in ZOO_SMALL:
+        metrics = {}
+        for device in ("cuda", "cpu"):
+            model = _zoo_model(spec, device, torch.float64)
+            tx = est.make_optimizer(3e-4)
+            state = est.create_train_state(model, torch.Generator().manual_seed(0), tx)
+            step = est.make_train_step(model, tx, composite_mode=mode, augment=False,
+                                       deepsupervision=deepsup, lowres_head=lowres)
+            # a CPU generator on both sides: the same dropout masks
+            _, met = step(state, _batch(4, 64, 3, device, seed=2), torch.Generator().manual_seed(1),
+                          0.3, [1.0, 1.0, 1.0], 3e-4, None)
+            metrics[device] = {k: float(v) for k, v in met.items()}
+        for k, want in metrics["cpu"].items():
+            got = metrics["cuda"][k]
+            if not (math.isfinite(got) and abs(got - want) <= FULLRES_STEP_RTOL * abs(want) + 1e-4):
+                raise AssertionError(f"zoo small step on the card ({what}): {k} {got} vs CPU "
+                                     f"{want}")
+        print(f"zoo small step ({what}, float64 model) agrees with the CPU step (rtol "
+              f"{FULLRES_STEP_RTOL}): loss {metrics['cuda']['loss']:.6f} vs "
+              f"{metrics['cpu']['loss']:.6f}", flush=True)
+
+
+def _zoo_run(card: str, what: str, spec: dict, mode: str, lowres: bool, deepsup: bool) -> tuple:
+    """13 steps (3 warm-up, 10 timed) of one model at full width from seed 0,
+    counters zeroed just before and read just after; returns (the counts, the
+    first step's loss, its gradients)."""
+    import torch
+
+    import ecologysemanticsegmentation_torch as est
+
+    batch_size, img = 128, 256
+    model = _zoo_model(spec, "cuda")
+    tx = est.make_optimizer(3e-4)
+    state = est.create_train_state(model, torch.Generator().manual_seed(0), tx)
+    step = est.make_train_step(model, tx, composite_mode=mode, augment=True,
+                               deepsupervision=deepsup, lowres_head=lowres)
+    batch = _batch(batch_size, img, 3, "cuda", seed=4)
+    rng = (torch.Generator().manual_seed(2), torch.Generator(device="cuda").manual_seed(1))
+    gates = [1.0, 1.0, 1.0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counters()
+    losses, grads = [], None
+    for i in range(3):
+        state, met = step(state, batch, rng, 0.0, gates, 3e-4, None)
+        losses.append(float(met["loss"]))
+        if i == 0:
+            grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = 10
+    for _ in range(timed):
+        state, met = step(state, batch, rng, 0.0, gates, 3e-4, None)
+        losses.append(met["loss"])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / timed
+    counts = _counters()
+    losses = [float(x) for x in losses]
+    peak = torch.cuda.max_memory_allocated()
+    print(f"zoo step ({what}): losses {[round(x, 5) for x in losses]}", flush=True)
+    print(f"zoo step ({what}): {step_ms:.3f} ms/step, {batch_size * 1e3 / step_ms:.2f} img/s, "
+          f"peak {peak / 2**30:.3f} GiB allocated, launches {counts} [{card}]", flush=True)
+    STEP_TIMES[f"zoo: {what}"] = (step_ms, peak)
+    steps = 3 + timed
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"zoo step ({what}): non-finite loss")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"zoo step ({what}): loss did not fall ({losses[0]} -> "
+                             f"{losses[-1]})")
+    want = {k: 0 for k in counts}
+    if lowres:
+        want["head_loss_fwd"] = want["head_loss_bwd"] = steps
+    else:
+        want["loss_sums_fwd"] = want["loss_sums_bwd"] = LOSS_SUMS_CALLS[mode] * steps
+    if counts != want:
+        raise AssertionError(f"zoo step ({what}) did not run its kernels as often as its path "
+                             f"calls them: {counts}, expected {want}")
+    return counts, losses[0], grads
+
+
+def check_zoo_full(card: str) -> dict:
+    """Phase 9 (b); returns the launches summed over its runs."""
+    import torch
+
+    from ecologysemanticsegmentation_torch.data import augment as aug
+
+    aug.TILED_CLAHE = False  # the global CLAHE
+    total: dict = {}
+    first = {}
+    for what, spec, mode, lowres, deepsup in ZOO_FULL:
+        counts, loss0, grads = _zoo_run(card, what, spec, mode, lowres, deepsup)
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+        if spec["name"] == "vgg_unet":
+            first[bool(spec.get("remat"))] = (loss0, grads)
+        del grads
+        torch.cuda.empty_cache()
+    (loss, grads), (rloss, rgrads) = first[False], first[True]
+    worst = 0.0
+    for n, g in grads.items():
+        err = (rgrads[n] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
+        worst = max(worst, err)
+        if not err <= STEP_RTOL:
+            raise AssertionError(f"zoo: the remat step's gradient of {n} is {err:.3g} of its "
+                                 f"scale away from the plain step's")
+    if not abs(rloss - loss) <= STEP_RTOL * abs(loss):
+        raise AssertionError(f"zoo: the remat step's first loss {rloss} vs plain {loss}")
+    ms, peak = STEP_TIMES["zoo: " + ZOO_FULL[0][0]]
+    rms, rpeak = STEP_TIMES["zoo: " + ZOO_FULL[1][0]]
+    print(f"zoo: vgg_unet remat's first step = the plain step's (loss {rloss:.6f} vs "
+          f"{loss:.6f}, gradients within {worst:.3g} of each tensor's scale, bound "
+          f"{STEP_RTOL}); remat {rms:.3f} ms/step, peak {rpeak / 2**30:.3f} GiB against plain "
+          f"{ms:.3f} ms/step, peak {peak / 2**30:.3f} GiB [{card}]", flush=True)
+    return total
+
+
+def check_zoo_clis(card: str) -> dict:
+    """Phase 9 (c), in the current directory: ``train_multiclass --model
+    vgg_unet --deepsupervision``, ``test_multiclass --deepsupervision`` over
+    its checkpoints, and ``train_multiclass_sequential_densenetloss
+    --depthwiseconv``; returns the launches summed over the trainers."""
+    import os
+
+    import numpy as np
+    import torch
+
+    import ecologysemanticsegmentation_torch as est
+    from ecologysemanticsegmentation_torch import test_multiclass as tm
+    from ecologysemanticsegmentation_torch import train_multiclass_sequential_densenetloss as scli
+    from ecologysemanticsegmentation_torch.train import checkpoint as ck
+
+    work = Path(os.getcwd())
+    (work / "vgg").mkdir()
+    os.chdir(work / "vgg")
+    flags = ["--model", "vgg_unet", "--deepsupervision", "--num_epochs", str(ZOO_CLI_EPOCHS)]
+    state, out, rates, total = _cli_run(card, "vgg_unet --deepsupervision", FLAGSHIP_ENV, flags,
+                                        ZOO_CLI_EPOCHS, ("loss_sums_fwd", "loss_sums_bwd"))
+    save_dir = Path("models") / "deeplabv3p" / "channels256" / "img256"
+    ckpts = sorted(p.name for p in save_dir.iterdir())
+    want = sorted(f"deeplabv3p_epoch{e}.ckpt" for e in (0, ZOO_CLI_EPOCHS - 1))
+    if ckpts != want:
+        raise AssertionError(f"zoo cli: checkpoints {ckpts}, expected {want}")
+    with open(Path("models") / "deeplabv3p" / "metrics.csv") as f:
+        header, *rows = [line.strip().split(",") for line in f]
+    losses = [float(r[header.index("loss")]) for r in rows]
+    if header != CLI_METRICS or len(rows) != ZOO_CLI_EPOCHS or not all(
+            math.isfinite(x) for x in losses):
+        raise AssertionError(f"zoo cli: metrics.csv has {header}, rows {rows}")
+    model = est.build_model("vgg_unet", num_classes=3, deepsupervision=True)
+    fresh = est.create_train_state(model, torch.Generator().manual_seed(99),
+                                   est.make_optimizer(3e-4))
+    epoch, fresh = ck.load_recent_model(str(save_dir), fresh, "deeplabv3p")
+    got, ran = _flat_tree(ck.state_to_flax(fresh)), _flat_tree(ck.state_to_flax(state))
+    if epoch != ZOO_CLI_EPOCHS - 1 or got.keys() != ran.keys() or not all(
+            np.array_equal(v, ran[k]) for k, v in got.items()):
+        raise AssertionError("zoo cli: the last checkpoint does not restore the run's state")
+    print(f"zoo cli (vgg_unet --deepsupervision): loss by epoch {losses}, the CLI's img/s by "
+          f"epoch {rates}; the last checkpoint restores the run's state, {len(got)} leaves "
+          f"equal [{card}]", flush=True)
+    del model, fresh, state
+    torch.cuda.empty_cache()
+
+    _zero_counters()
+    results = {}
+    _run_cli(lambda a: results.setdefault("dice", tm.test(a)), tm.build_argparser().parse_args(
+        ["--dataset", "synthetic", "--deepsupervision"]))
+    counts = _counters()
+    scored = results["dice"]
+    if [e for e, _ in scored] != [0, ZOO_CLI_EPOCHS - 1] or not all(
+            d.shape == (3,) and np.isfinite(d).all() and ((d >= 0) & (d <= 1)).all()
+            for _, d in scored) or any(counts.values()):
+        raise AssertionError(f"zoo eval (--deepsupervision): {scored}, launches {counts}")
+    print(f"zoo eval (test_multiclass --deepsupervision): per-organ Dice by epoch "
+          f"{[(e, [round(float(x), 6) for x in d]) for e, d in scored]}, no kernel launched",
+          flush=True)
+
+    (work / "depthwise").mkdir()
+    os.chdir(work / "depthwise")
+    args = scli.build_argparser().parse_args(
+        CLI_FLAGS + ["--depthwiseconv", "--num_epochs", str(ZOO_SEQ_EPOCHS)])
+    torch.cuda.synchronize()
+    _zero_counters()
+    t0 = time.perf_counter()
+    out = _run_cli(scli.train, args)
+    torch.cuda.synchronize()
+    counts = _counters()
+    epochs = re.findall(r"^Epoch (\d+): loss (\S+) \(([\d.]+) img/s", out, re.M)
+    want = {k: 0 for k in counts}
+    want["loss_sums_fwd"] = want["loss_sums_bwd"] = 2 * ZOO_SEQ_EPOCHS
+    if counts != want or len(epochs) != ZOO_SEQ_EPOCHS or "finished training" not in out \
+            or not all(math.isfinite(float(e[1])) for e in epochs):
+        raise AssertionError(f"zoo sequential cli (--depthwiseconv): launches {counts}, "
+                             f"expected {want}; epochs {epochs}")
+    print(f"zoo sequential cli (--depthwiseconv): {time.perf_counter() - t0:.2f} s wall, loss "
+          f"by epoch {[float(e[1]) for e in epochs]}, img/s {[float(e[2]) for e in epochs]}, "
+          f"launches {counts} [{card}]", flush=True)
+    for k, n in counts.items():
+        total[k] = total.get(k, 0) + n
+    return total
+
+
+def check_phase9(card: str) -> dict:
+    """Phase 9; returns each kernel's launches over its counted runs."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from ecologysemanticsegmentation_torch.data import augment as aug
+
+    t0 = time.perf_counter()
+    check_zoo_small_steps()
+    torch.cuda.empty_cache()
+    launches = check_zoo_full(card)
+    aug.TILED_CLAHE = False
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_phase9_"))
+    cwd, env = os.getcwd(), dict(os.environ)
+    try:
+        os.chdir(work)
+        for k, n in check_zoo_clis(card).items():
+            launches[k] = launches.get(k, 0) + n
+    finally:
+        os.chdir(cwd)
+        os.environ.clear()
+        os.environ.update(env)
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"phase 9 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 # Phase 6: four ranks on the one card over gloo (NCCL refuses two ranks on
 # one device; gloo stages the collectives through host memory).
 PAR_WORLD = 4
@@ -2279,6 +2611,12 @@ def main() -> int:
     if sys.argv[1:] == ["--mutants"]:
         check_mutants()
         return 0
+    if sys.argv[1:] == ["--zoo"]:
+        _build.build(["head_loss", "loss_sums"])
+        head_loss.library()
+        loss_sums.library()
+        check_phase9(card)
+        return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
@@ -2311,6 +2649,8 @@ def main() -> int:
     # Phase 8: per-sample augmentation, the sequential CLI, the eval CLIs.
     phase8 = check_phase8(card)
     torch.cuda.empty_cache()
+    # Phase 9: the rest of the model zoo, its CLIs.
+    zoo = check_phase9(card)
     # Phase 6: the parallel paths, counted on each rank.
     counts.update({k: v for k, v in check_parallel(card).items() if k.startswith("head_loss_shard")})
     for name, entry in report.items():
@@ -2318,6 +2658,7 @@ def main() -> int:
         entry["cli_launches"] = cli_counts.get(name, 0)
         entry["per_sample_launches"] = phase8["per_sample"][name]
         entry["seq_cli_launches"] = phase8["sequential_cli"][name]
+        entry["zoo_launches"] = zoo.get(name, 0)
     print(json.dumps({"kernels": list(report.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

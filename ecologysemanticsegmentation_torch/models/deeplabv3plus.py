@@ -1,5 +1,6 @@
-"""DeepLabV3+ with a ResNet-34 encoder at output stride 16, the flagship
-model (PyTorch port of ``ecologysemanticsegmentation_tpu/models/deeplabv3plus.py``).
+"""DeepLabV3+ with a ResNet-34 (the flagship) or ResNet-50 encoder at output
+stride 16, and the ``--depthwiseconv`` variant (PyTorch port of
+``ecologysemanticsegmentation_tpu/models/deeplabv3plus.py``).
 
 The model's public interface is NHWC, as the JAX module's: images
 (B, H, W, 3) in, float32 logits (B, H, W, C) out, or (B, H/4, W/4, C) with
@@ -24,8 +25,8 @@ from torch import nn
 
 from ..ops.resize import resize_bilinear
 from ..parallel.collectives import all_gather_rows
-from .common import ConvBNAct, SeparableConvBNAct
-from .resnet import ResNetEncoder
+from .common import ConvBNAct, SeparableConvBNAct, conv_f32
+from .resnet import ENCODER_FEATURES, encoder_by_name
 
 
 def _resize_nchw(x: torch.Tensor, out_hw, align_corners: bool, rows=None) -> torch.Tensor:
@@ -86,14 +87,16 @@ class ASPP(nn.Module):
 
 
 class DeepLabV3Plus(nn.Module):
-    def __init__(self, num_classes: int = 1, decoder_features: int = 256,
-                 aspp_dropout: float = 0.5, upsample_head: bool = True):
+    def __init__(self, num_classes: int = 1, encoder_name: str = "resnet34",
+                 decoder_features: int = 256, aspp_dropout: float = 0.5,
+                 upsample_head: bool = True):
         super().__init__()
         self.upsample_head = upsample_head
-        self.encoder = ResNetEncoder()
-        self.aspp = ASPP(512, decoder_features, aspp_dropout)
+        self.encoder = encoder_by_name(encoder_name, output_stride=16)
+        widths = ENCODER_FEATURES[encoder_name]
+        self.aspp = ASPP(widths[4], decoder_features, aspp_dropout)
         self.aspp_out = SeparableConvBNAct(decoder_features, decoder_features)
-        self.low_project = ConvBNAct(64, 48, 1)
+        self.low_project = ConvBNAct(widths[1], 48, 1)
         # smp channel order: [aspp, low]
         self.fuse = SeparableConvBNAct(decoder_features + 48, decoder_features)
         # smp 0.3.3's SegmentationHead: a 1x1 conv with bias
@@ -127,3 +130,27 @@ class DeepLabV3Plus(nn.Module):
             else:
                 y = _resize_nchw(y, x.shape[2:], align_corners=True)
         return y.permute(0, 2, 3, 1).float()
+
+
+class DeepLabV3PlusDepthwise(nn.Module):
+    """The reference's ``--depthwiseconv`` variant (JAX
+    ``DeepLabV3PlusDepthwise``): an inner DeepLabV3+ ``smp_deeplab_model``
+    predicting ``num_classes * depthwise_multiplier`` channels at full
+    resolution, then ``last_layers``, a 3x3 conv with bias back to
+    ``num_classes``, in float32.  Its kernel is initialized kaiming-normal
+    (``variance_scale`` 2, read by ``train.init_weights``)."""
+
+    depthwise_multiplier = 5
+
+    def __init__(self, num_classes: int = 1, encoder_name: str = "resnet34",
+                 aspp_dropout: float = 0.5):
+        super().__init__()
+        width = num_classes * self.depthwise_multiplier
+        self.smp_deeplab_model = DeepLabV3Plus(width, encoder_name, aspp_dropout=aspp_dropout)
+        self.last_layers = nn.Conv2d(width, num_classes, 3, padding=1, bias=True)
+        self.last_layers.variance_scale = 2.0
+
+    def forward(self, images: torch.Tensor, generator: torch.Generator | None = None
+                ) -> torch.Tensor:
+        y = self.smp_deeplab_model(images, generator).permute(0, 3, 1, 2)
+        return conv_f32(self.last_layers, y).permute(0, 2, 3, 1)

@@ -2,17 +2,16 @@
 JAX package's ``models/import_torch.py``).
 
 The reference trains ``smp.DeepLabV3Plus(encoder_name="resnet34")``
-(segmentation-models-pytorch 0.3.3) and saves ``net.state_dict()``.  These
-functions map such a state dict, and a torchvision ResNet encoder's, onto
-the JAX package's flax trees, as the JAX package does, leaf for leaf:
+(segmentation-models-pytorch 0.3.3), or its ``--depthwiseconv`` wrapper,
+and saves ``net.state_dict()``.  These functions map such a state dict, a
+torchvision ResNet encoder's (resnet34 or resnet50) and torchvision
+``vgg19_bn``'s features onto the JAX package's flax trees, as the JAX
+package does, leaf for leaf:
 convolutions OIHW -> HWIO, BatchNorm ``weight``/``bias`` to ``scale``/
 ``bias`` and ``running_mean``/``running_var`` to the ``batch_stats``
 ``mean``/``var``.  :func:`.from_flax.from_flax_variables` turns the trees
 into the port's ``state_dict`` (``train/checkpoint.py`` does, for a
 ``.pt`` file).
-
-The VGG encoder and the ``--depthwiseconv`` wrapper come with their models
-(ROADMAP queue 1, item 7).
 """
 
 from __future__ import annotations
@@ -21,7 +20,7 @@ from typing import Any, Mapping
 
 import numpy as np
 
-_ITEM7 = "is not ported yet: it comes with the VGG and depthwise models (ROADMAP queue 1, item 7)"
+from .vgg import VGG19_CFG
 
 
 def _t2f_conv(w: np.ndarray) -> np.ndarray:
@@ -44,8 +43,10 @@ def resnet_encoder_from_torch(
     state_dict: Mapping[str, Any], prefix: str = ""
 ) -> tuple[dict, dict]:
     """A torchvision ResNet state dict -> (params, batch_stats) flax trees of
-    the encoder (``layer{N}_block{M}`` names).  ``prefix`` strips a leading
-    namespace (``"encoder."`` in smp checkpoints); ``fc.*`` is ignored."""
+    the encoder (``layer{N}_block{M}`` names; a Bottleneck block's
+    ``conv3``/``bn3`` come with its ``conv1``/``conv2``).  ``prefix`` strips a
+    leading namespace (``"encoder."`` in smp checkpoints); ``fc.*`` is
+    ignored."""
     params: dict = {}
     stats: dict = {}
 
@@ -84,8 +85,35 @@ def resnet_encoder_from_torch(
 
 def vgg19_bn_encoder_from_torch(state_dict: Mapping[str, Any], max_channels: int = 512,
                                 prefix: str = "features.") -> tuple[dict, dict]:
-    """torchvision ``vgg19_bn`` features onto the VGG encoder: not ported."""
-    raise NotImplementedError(f"the vgg19_bn import {_ITEM7}")
+    """torchvision ``vgg19_bn`` features -> (params, batch_stats) flax trees
+    of the VGG U-Net's encoder (``conv{i}`` with bias, ``bn{i}``), truncated
+    at the first conv wider than ``max_channels`` as the encoder is.  The
+    torch ``Sequential`` holds conv, bn, relu per conv and one max pool per
+    stage."""
+    params: dict = {}
+    stats: dict = {}
+
+    def np_(key):
+        return _numpy(state_dict[prefix + key])
+
+    torch_idx = 0  # index in the torch Sequential
+    conv_idx = 0
+    for spec in VGG19_CFG:
+        if spec == "M":
+            torch_idx += 1
+            continue
+        if int(spec) > max_channels:
+            break
+        _set(params, (f"conv{conv_idx}", "kernel"), _t2f_conv(np_(f"{torch_idx}.weight")))
+        _set(params, (f"conv{conv_idx}", "bias"), np_(f"{torch_idx}.bias"))
+        bn_src = f"{torch_idx + 1}"
+        _set(params, (f"bn{conv_idx}", "scale"), np_(f"{bn_src}.weight"))
+        _set(params, (f"bn{conv_idx}", "bias"), np_(f"{bn_src}.bias"))
+        _set(stats, (f"bn{conv_idx}", "mean"), np_(f"{bn_src}.running_mean"))
+        _set(stats, (f"bn{conv_idx}", "var"), np_(f"{bn_src}.running_var"))
+        torch_idx += 3  # conv, bn, relu
+        conv_idx += 1
+    return params, stats
 
 
 def smp_deeplabv3plus_from_torch(
@@ -153,11 +181,15 @@ def smp_deeplabv3plus_from_torch(
 
 def smp_checkpoint_to_variables(state_dict: Mapping[str, Any]) -> dict:
     """A reference checkpoint (``torch.save(net.state_dict())``) -> flax
-    ``{"params", "batch_stats"}`` of DeepLabV3+.  The ``--depthwiseconv``
-    wrapper's layout (``smp_deeplab_model.*``, ``last_layers.*``) raises:
-    its model is not ported."""
+    ``{"params", "batch_stats"}`` of DeepLabV3+, or of
+    ``DeepLabV3PlusDepthwise`` for the ``--depthwiseconv`` wrapper's layout
+    (``smp_deeplab_model.*`` and ``last_layers.{weight,bias}``)."""
     if any(k.startswith("smp_deeplab_model.") for k in state_dict):
-        raise NotImplementedError(f"the DeepLabV3PlusDepthwise checkpoint layout {_ITEM7}")
+        inner_p, inner_s = smp_deeplabv3plus_from_torch(state_dict, prefix="smp_deeplab_model.")
+        params = {"smp_deeplab_model": inner_p,
+                  "last_layers": {"kernel": _t2f_conv(_numpy(state_dict["last_layers.weight"])),
+                                  "bias": _numpy(state_dict["last_layers.bias"])}}
+        return {"params": params, "batch_stats": {"smp_deeplab_model": inner_s}}
     params, stats = smp_deeplabv3plus_from_torch(state_dict)
     return {"params": params, "batch_stats": stats}
 

@@ -1,5 +1,5 @@
-"""Bilinear resize as two f32 matrix products (PyTorch port of
-``ecologysemanticsegmentation_tpu/ops/resize.py``).
+"""Bilinear resize as two f32 matrix products, and the nearest resizes
+(PyTorch port of ``ecologysemanticsegmentation_tpu/ops/resize.py``).
 
 The interpolation matrices are built on the host exactly as the JAX package
 builds them (float64 source coordinates rounded to float32 weights), so the
@@ -81,3 +81,23 @@ def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int],
         y = torch.matmul(mh, x.contiguous().to(dt).reshape(n, h, w * c))  # (n, oh, w*c)
         y = torch.matmul(mw, y.reshape(n * oh, w, c))                     # (n*oh, ow, c)
     return y.reshape(n, oh, ow, c).to(x.dtype)
+
+
+def upsample_nearest(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
+    """Nearest-neighbour integer upsampling of NHWC ``x``: each pixel
+    repeated ``scale`` times along both axes (torch
+    ``F.interpolate(scale_factor=k)``'s default mode), in one copy."""
+    n, h, w, c = x.shape
+    y = x[:, :, None, :, None, :].expand(n, h, scale, w, scale, c)
+    return y.reshape(n, h * scale, w * scale, c)
+
+
+def resize_nearest(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """Nearest resize of NHWC ``x`` to ``out_hw`` with the JAX package's
+    rule: output row ``i`` reads input row ``i * h // oh`` (and columns
+    alike), which is not ``F.interpolate``'s rule at every ratio."""
+    _, h, w, _ = x.shape
+    oh, ow = int(out_hw[0]), int(out_hw[1])
+    rows = torch.arange(oh, device=x.device) * h // oh
+    cols = torch.arange(ow, device=x.device) * w // ow
+    return x[:, rows][:, :, cols]

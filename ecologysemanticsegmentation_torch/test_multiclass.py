@@ -14,10 +14,11 @@ names and output:
   as PNGs (``display_composite_annotations``);
 * the final report ranks the epochs by each organ's Dice.
 
-The card is the default device and the run raises without one;
-``--platform cpu`` runs on the CPU.  ``--deepsupervision``,
-``--depthwiseconv`` and models or encoders other than DeepLabV3+ resnet34
-raise ``NotImplementedError`` naming their ROADMAP item.
+``--model`` and ``--encoder`` pick the model, ``--depthwiseconv`` the
+DeepLabV3+ wrapper and ``--deepsupervision`` the VGG U-Net with its side
+heads (scored on its main head), at ``max_channels=MAXCHANNELS``.  The card
+is the default device and the run raises without one; ``--platform cpu``
+runs on the CPU.
 """
 
 from __future__ import annotations
@@ -40,9 +41,10 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--model", default="deeplabv3plus")
     ap.add_argument("--encoder", default="resnet34")
     ap.add_argument("--depthwiseconv", action="store_true",
-                    help="DeepLabV3PlusDepthwise checkpoints (not ported yet)")
+                    help="DeepLabV3PlusDepthwise checkpoints")
     ap.add_argument("--deepsupervision", action="store_true",
-                    help="Score checkpoints trained with --deepsupervision (not ported yet)")
+                    help="Score checkpoints trained with --deepsupervision "
+                         "(vgg_unet; the main head is scored)")
     ap.add_argument("--union_reverse", action="store_true",
                     help="Apply the reverse union-set transform to predictions "
                          "before scoring (sequential-variant eval semantics)")
@@ -51,17 +53,16 @@ def build_argparser() -> argparse.ArgumentParser:
     return ap
 
 
-def _unported(args) -> str | None:
-    """Why ``args`` asks for a part that is not ported, or None."""
-    if args.deepsupervision:
-        return "--deepsupervision needs the VGG models (ROADMAP queue 1, item 7)"
-    if args.depthwiseconv:
-        return "--depthwiseconv needs DeepLabV3PlusDepthwise (ROADMAP queue 1, item 7)"
-    if args.model != "deeplabv3plus":
-        return f"--model {args.model} is not ported yet (ROADMAP queue 1, item 7)"
-    if args.encoder != "resnet34":
-        return f"--encoder {args.encoder} is not ported yet (ROADMAP queue 1, item 7)"
-    return None
+def build_eval_model(args, cfg, device):
+    """The model whose checkpoints the sweep scores: ``--deepsupervision``
+    checkpoints carry the VGG U-Net's side-head parameters, so it builds
+    that model, whose main head the eval step scores."""
+    from .models import build_model
+
+    name = "vgg_unet" if args.deepsupervision else args.model
+    return build_model(name, num_classes=cfg.num_classes, encoder_name=args.encoder,
+                       max_channels=cfg.max_channels, depthwise=args.depthwiseconv,
+                       deepsupervision=args.deepsupervision, device=device)
 
 
 def eval_template(model):
@@ -130,12 +131,8 @@ def evaluate_checkpoint(
 
 def test(args=None):
     args = args if args is not None else build_argparser().parse_args()
-    reason = _unported(args)
-    if reason:
-        raise NotImplementedError(reason)
     from .config import EnvConfig
     from .data import Batcher, cuda_prefetch, get_split_datasets
-    from .models import build_model
     from .train import list_checkpoints, load_checkpoint_file, make_eval_step
     from .train_multiclass import device_of
 
@@ -150,7 +147,7 @@ def test(args=None):
     print(f"Using batch size: {batch_size}")
     loader = Batcher(test_ds, batch_size, shuffle=False, drop_last_if_single=False)
 
-    model = build_model(args.model, num_classes=cfg.num_classes, device=device)
+    model = build_eval_model(args, cfg, device)
     template = eval_template(model)
     eval_step = make_eval_step(model, apply_union_reverse=args.union_reverse)
 

@@ -51,7 +51,8 @@ def _edge_analysis(args):
     device = device_of(args.platform)
     cfg = EnvConfig.from_env()
     _, _, test_ds = get_split_datasets(cfg, synthetic=args.dataset == "synthetic")
-    model = build_model(args.model, num_classes=cfg.num_classes, device=device)
+    model = build_model(args.model, num_classes=cfg.num_classes, encoder_name=args.encoder,
+                        depthwise=args.depthwiseconv, device=device)
     template = eval_template(model)
     save_dir = cfg.checkpoint_dir(args.models_dir or "models")
     pairs = [(e, p) for e, p in list_checkpoints(save_dir, cfg.expt_name) if e == args.single_model]

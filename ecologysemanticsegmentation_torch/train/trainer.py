@@ -29,6 +29,7 @@ from ..data.augment import augment_batch_per_sample
 from ..losses import (
     LOSS_NAMES,
     binary_cross_entropy,
+    binary_cross_entropy_list,
     dice_score,
     return_union_sets_descending_order,
     sequential_cross_organ_losses,
@@ -38,7 +39,9 @@ from ..losses import (
     seven_losses_lowres_spatial,
 )
 from ..models.common import BatchNorm2d
+from ..models.deeplabv3plus import DeepLabV3Plus
 from ..ops.loss_sums import spatial_mesh_context
+from ..ops.resize import resize_nearest
 from ..parallel.collectives import all_reduce_grads
 from ..parallel.mesh import batch_block, row_block
 
@@ -129,13 +132,17 @@ def _truncated_normal_(t: torch.Tensor, std: float, generator: torch.Generator) 
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Re-initialize ``model`` as flax's ``model.init`` does: conv kernels
-    lecun-normal (variance 1/fan_in, truncated), conv biases 0, BatchNorm
-    scale 1, bias 0, mean 0, var 1.  Draws on the host from ``generator``, so
-    one seed gives the same weights on every device."""
+    lecun-normal (variance 1/fan_in, truncated), or kaiming-normal (variance
+    2/fan_in, truncated) where the conv has ``variance_scale`` 2, conv
+    biases 0, BatchNorm scale 1, bias 0, mean 0, var 1.  Draws on the host
+    from ``generator``, so one seed gives the same weights on every
+    device."""
     for m in model.modules():
         if isinstance(m, nn.Conv2d):
             fan_in = m.weight[0].numel()
-            _truncated_normal_(m.weight, math.sqrt(1.0 / fan_in) / .87962566103423978, generator)
+            scale = getattr(m, "variance_scale", 1.0)
+            _truncated_normal_(m.weight, math.sqrt(scale / fan_in) / .87962566103423978,
+                               generator)
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, BatchNorm2d):
@@ -185,6 +192,11 @@ def make_train_step(model: nn.Module, tx, composite_mode: str = "none", augment:
     ``AUGMENT_PER_SAMPLE=1``; CLAHE form from ``AUGMENT_TILED_CLAHE``) runs
     on the device before label prep, as in the JAX step.
 
+    ``deepsupervision`` (a VGG U-Net built with it, which returns its logits
+    and side heads): the loss adds
+    :func:`..losses.binary_cross_entropy_list` of each side head's sigmoid
+    against the prepared labels resized nearest to its resolution.
+
     ``lowres_head=False`` (a model built with ``upsample_head=True``): the
     loss is ``composite_mode``'s 7-tuple of ``sigmoid(logits)`` at full
     resolution through the loss-sums kernel: "none" is
@@ -226,9 +238,9 @@ def make_train_step(model: nn.Module, tx, composite_mode: str = "none", augment:
     if lowres_head and composite_mode != "none":
         raise ValueError("lowres_head folds the upsample into the plain seven_losses path; "
                          f"composite_mode={composite_mode!r} needs lowres_head=False")
-    if deepsupervision:
-        raise NotImplementedError("deepsupervision needs the VGG models' side heads, not "
-                                  "ported yet (ROADMAP queue 1, item 7)")
+    if lowres_head and deepsupervision:
+        raise ValueError("lowres_head folds the upsample into the plain seven_losses path; "
+                         "deepsupervision needs lowres_head=False")
     if k_steps != 1:
         raise NotImplementedError("k_steps > 1 is the JAX package's scan of steps in one "
                                   "dispatch, which amortizes TPU dispatch and changes no "
@@ -237,6 +249,10 @@ def make_train_step(model: nn.Module, tx, composite_mode: str = "none", augment:
     if mesh is not None:
         if not hasattr(mesh, "spatial"):
             raise TypeError(f"spatial_mesh must be a parallel.Mesh, got {type(mesh).__name__}")
+        if not isinstance(model, DeepLabV3Plus):
+            raise NotImplementedError(f"the step on a mesh runs DeepLabV3+; "
+                                      f"{type(model).__name__} on a mesh comes with the "
+                                      "multi-rank trainers (ROADMAP queue 1, item 10)")
         if mesh.device != next(model.parameters()).device:
             raise ValueError(f"the mesh's rank runs on {mesh.device}, the model is on "
                              f"{next(model.parameters()).device}")
@@ -276,6 +292,8 @@ def make_train_step(model: nn.Module, tx, composite_mode: str = "none", augment:
         with _autocast(dev):
             out = (model(images, generator=rng) if mesh is None
                    else model(images, generator=rng, spatial=spatial))
+        if deepsupervision:
+            out, heads = out
         if lowres_head:
             seven = (seven_losses_lowres(out, labels) if mesh is None
                      else seven_losses_lowres_spatial(out, labels, mesh))
@@ -285,6 +303,10 @@ def make_train_step(model: nn.Module, tx, composite_mode: str = "none", augment:
             with spatial_mesh_context(mesh):
                 seven = seven_fn(torch.sigmoid(out.float()), labels, bg_weight, jitters)
         loss = gates[0] * seven[6] + gates[1] * seven[1] + gates[2] * (seven[4] + seven[5])
+        if deepsupervision:
+            loss = loss + binary_cross_entropy_list(
+                [resize_nearest(labels, h.shape[1:3]) for h in heads],
+                [torch.sigmoid(h.float()) for h in heads])
 
         opt = state.optimizer
         opt.zero_grad(set_to_none=True)
@@ -356,6 +378,8 @@ def make_forward(model: nn.Module) -> Callable:
         model.eval()
         with _autocast(dev):
             out = model(x)
+        if isinstance(out, tuple):  # deep supervision: the main head
+            out = out[0]
         return torch.sigmoid(out.float())
 
     return forward

@@ -5,7 +5,10 @@ The JAX package's ``train_multiclass`` on one NVIDIA card, with its flags,
 names and defaults:
 
 * env ``EXPTNAME``/``ORGANS``/``IMGSIZE``/``MAXCHANNELS``/``SAMPLE``;
-  DeepLabV3+ (resnet34) with ``classes=len(ORGANS)``;
+  ``--model`` (DeepLabV3+ by default) with ``--encoder`` (resnet34 or
+  resnet50) and ``classes=len(ORGANS)``; ``--deepsupervision`` trains the
+  VGG U-Net with its side heads, at ``max_channels=MAXCHANNELS``, and
+  ``--remat`` recomputes its stages in backward;
 * per epoch the curriculum gates, the background weight and the cosine
   learning rate (T_0 = 100, stepped with ``epoch + 1``);
 * ``Batcher(pad_final=True)``, each batch staged in pinned memory and
@@ -18,8 +21,10 @@ names and defaults:
   ``val_images/<epoch>/``; ``metrics.csv`` in ``models/<EXPT>/``.
 
 DeepLabV3+ with more than one organ trains on 1/4-resolution logits through
-the fused head loss unless ``--no_fused_head_loss``; eval uses the
-full-resolution view of the same parameters.  Each step draws its random
+the fused head loss unless ``--no_fused_head_loss`` (or
+``--deepsupervision``); eval uses the full-resolution view of the same
+parameters.  Every other model trains on full-resolution logits through
+the loss-sums kernel.  Each step draws its random
 values from generators seeded by ``(seed, epoch * 1_000_003 + i)``, as the
 JAX package folds its key, so a resumed run draws what an unbroken run
 would.  The step's metrics come to the host in one transfer a step.
@@ -60,7 +65,7 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--log_every", default=None, type=int)
     ap.add_argument("--no_augment", action="store_true")
     ap.add_argument("--deepsupervision", action="store_true",
-                    help="Train vgg_unet with side heads (not ported yet)")
+                    help="Train vgg_unet with side heads + BCE label pyramids")
     ap.add_argument("--ckpt", default="msgpack", choices=["msgpack", "orbax"],
                     help="Checkpoint backend: msgpack = reference filename "
                          "layout (orbax is not ported yet)")
@@ -77,7 +82,9 @@ def build_argparser() -> argparse.ArgumentParser:
                     help="Average this many micro-batch gradients into "
                          "one Adam update; resume with the same value")
     ap.add_argument("--remat", action="store_true",
-                    help="Per-stage rematerialization for vgg_unet (not ported yet)")
+                    help="Per-stage rematerialization for vgg_unet (recomputes "
+                         "activations in backward; numerics and checkpoints "
+                         "unchanged)")
     ap.add_argument("--aot_cache", default=None, metavar="DIR",
                     help="Cache of the compiled train step (not ported yet)")
     return ap
@@ -85,13 +92,6 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def _unported(args) -> str | None:
     """Why ``args`` asks for a part that is not ported, or None."""
-    if args.deepsupervision or args.remat:
-        flag = "--deepsupervision" if args.deepsupervision else "--remat"
-        return f"{flag} needs the VGG models (ROADMAP queue 1, item 7)"
-    if args.model != "deeplabv3plus":
-        return f"--model {args.model} is not ported yet (ROADMAP queue 1, item 7)"
-    if args.encoder != "resnet34":
-        return f"--encoder {args.encoder} is not ported yet (ROADMAP queue 1, item 7)"
     if args.aot_cache:
         return "--aot_cache is not ported yet (ROADMAP queue 1, item 11)"
     if args.spatial_partition > 1:
@@ -173,12 +173,15 @@ def train(args=None):
     train_ds, val_ds, _ = get_split_datasets(cfg, synthetic=args.dataset == "synthetic")
     assert len(train_ds) > 0, "empty training dataset — check data dir or use --dataset synthetic"
 
+    model_name = "vgg_unet" if args.deepsupervision else args.model
     # Fused head loss: train on 1/4-resolution logits (the upsample and the
     # sigmoid folded into the loss kernel); eval reads the same parameters
     # through the upsampling head.
-    lowres = cfg.num_classes > 1 and not args.no_fused_head_loss
-    model = build_model("deeplabv3plus", num_classes=cfg.num_classes,
-                        upsample_head=not lowres, device=device)
+    lowres = (model_name == "deeplabv3plus" and cfg.num_classes > 1
+              and not args.deepsupervision and not args.no_fused_head_loss)
+    model = build_model(model_name, num_classes=cfg.num_classes, encoder_name=args.encoder,
+                        max_channels=cfg.max_channels, deepsupervision=args.deepsupervision,
+                        upsample_head=not lowres, remat=args.remat, device=device)
     eval_model = model
     if lowres:
         eval_model = copy.copy(model)  # shares every parameter and buffer
@@ -189,7 +192,8 @@ def train(args=None):
         state, epoch=None if args.start_epoch == 0 else args.start_epoch)
 
     augment = not args.no_augment
-    train_step = make_train_step(model, tx, augment=augment, lowres_head=lowres)
+    train_step = make_train_step(model, tx, augment=augment,
+                                 deepsupervision=args.deepsupervision, lowres_head=lowres)
     eval_step = make_eval_step(eval_model)
 
     lr_at = cosine_annealing_warm_restarts(args.lr, t_0=100)

@@ -20,9 +20,10 @@ Each step draws from generators seeded by ``(seed, epoch * 1_000_003 + i)``
 and reads batches staged one ahead on the card (:func:`.data.cuda_prefetch`),
 as ``train_multiclass`` does.  The card is the default device and the run
 raises without one; ``--platform cpu`` runs on the CPU.  ``--depthwiseconv``
-and other encoders (item 7), ``--spatial_partition > 1`` and a launch of more
-than one rank (item 10) and ``--ckpt orbax`` (item 12) raise
-``NotImplementedError`` naming their ROADMAP item.
+trains ``DeepLabV3PlusDepthwise`` and ``--encoder`` picks resnet34 or
+resnet50.  ``--spatial_partition > 1`` and a launch of more than one rank
+(item 10) and ``--ckpt orbax`` (item 12) raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--num_epochs", default=11000, type=int)
     ap.add_argument("--early_stop_epoch", default=400, type=int)
     ap.add_argument("--depthwiseconv", action="store_true",
-                    help="DeepLabV3PlusDepthwise head (not ported yet)")
+                    help="DeepLabV3PlusDepthwise head")
     ap.add_argument("--dataset", default="registry", choices=["registry", "synthetic"])
     ap.add_argument("--models_dir", default="models")
     ap.add_argument("--encoder", default="resnet34")
@@ -64,10 +65,6 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def _unported(args) -> str | None:
     """Why ``args`` asks for a part that is not ported, or None."""
-    if args.depthwiseconv:
-        return "--depthwiseconv needs DeepLabV3PlusDepthwise (ROADMAP queue 1, item 7)"
-    if args.encoder != "resnet34":
-        return f"--encoder {args.encoder} is not ported yet (ROADMAP queue 1, item 7)"
     if args.spatial_partition > 1:
         return ("--spatial_partition > 1 needs the multi-rank CLI, not ported yet "
                 "(ROADMAP queue 1, item 10)")
@@ -114,7 +111,8 @@ def train(args=None):
     if not len(train_ds):
         raise AssertionError("empty training dataset")
 
-    model = build_model("deeplabv3plus", num_classes=cfg.num_classes, device=device)
+    model = build_model("deeplabv3plus", num_classes=cfg.num_classes, encoder_name=args.encoder,
+                        depthwise=args.depthwiseconv, device=device)
     tx = make_optimizer(args.lr, grad_accum=args.grad_accum)
     state = create_train_state(model, torch.Generator().manual_seed(args.seed), tx)
     start_epoch, state = ckptr.restore(

@@ -139,10 +139,6 @@ def test_jax_restores_cli_checkpoint(runs):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--deepsupervision"], "item 7"),
-    (["--remat"], "item 7"),
-    (["--model", "unet"], "item 7"),
-    (["--encoder", "resnet50"], "item 7"),
     (["--aot_cache", "cache"], "item 11"),
     (["--spatial_partition", "2"], "item 10"),
 ])

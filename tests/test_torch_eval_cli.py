@@ -21,8 +21,8 @@ the JAX package's namespaces in this module only).
 * ``--single_model 7`` writes the same PNG names, and the gt overlays are
   equal pixel for pixel (the pred overlays within one grey level);
 * the sequential evaluator's ``--edge_analysis`` writes the same PNGs;
-* the unported flags raise ``NotImplementedError`` naming their item, and
-  the card is the default device.
+* the card is the default device (the model flags are held by
+  ``tests/test_torch_models_cli.py``).
 """
 
 import contextlib
@@ -234,19 +234,6 @@ def test_edge_analysis_pngs(runs):
         want = cv2.imread(str(root["jax"] / n), cv2.IMREAD_UNCHANGED)
         assert got is not None and got.shape == want.shape == (32, 32), n
         assert np.abs(got.astype(int) - want).max() <= 1, n
-
-
-@pytest.mark.parametrize("cli", list(CLIS))
-@pytest.mark.parametrize("flags,item", [
-    (["--deepsupervision"], "item 7"),
-    (["--depthwiseconv"], "item 7"),
-    (["--model", "unet"], "item 7"),
-    (["--encoder", "resnet50"], "item 7"),
-])
-def test_unported_flags_raise(cli, flags, item):
-    module = CLIS[cli][1]
-    with pytest.raises(NotImplementedError, match=item):
-        module.test(module.build_argparser().parse_args(["--platform", "cpu"] + flags))
 
 
 @pytest.mark.parametrize("cli", list(CLIS))

@@ -15,7 +15,8 @@ after ``tests/test_import_torch.py``) is mapped by both:
   / atol 1e-4, the tolerance ``tests/test_torch_model.py`` holds the
   port's DeepLabV3+ to);
 * a checkpoint of another class count gives None, as does the depthwise
-  wrapper's layout (not ported: it raises inside and is skipped);
+  wrapper's layout in a plain DeepLabV3+ template; the wrapper's trees
+  equal JAX's (its forward: ``tests/test_torch_models_resnet.py``);
 * ``strip_smp_deeplab_prefix`` equals JAX's.
 """
 
@@ -151,10 +152,12 @@ def test_mismatched_or_unported_pt_returns_none(state_dict, tmp_path):
     path = str(tmp_path / "depthwise.pt")
     torch.save(wrapper, path)
     assert load_checkpoint_file(path, _template()) is None
-    with pytest.raises(NotImplementedError, match="item 7"):
-        pimp.smp_checkpoint_to_variables(wrapper)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        pimp.vgg19_bn_encoder_from_torch({})
+    got, want = pimp.smp_checkpoint_to_variables(wrapper), jimp.smp_checkpoint_to_variables(
+        wrapper)
+    for col in ("params", "batch_stats"):
+        g, w = flatten_dict(got[col]), flatten_dict(want[col])
+        assert set(g) == set(w) and ("last_layers", "kernel") in flatten_dict(got["params"])
+        assert all(np.array_equal(g[k], np.asarray(w[k])) for k in w)
     corrupt = tmp_path / "corrupt.pt"
     corrupt.write_bytes(b"not a checkpoint")
     assert load_checkpoint_file(str(corrupt), _template()) is None

@@ -79,23 +79,43 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
 
 
 def test_build_model_names():
-    with pytest.raises(NotImplementedError):
-        est.build_model("unet", device="cpu")
+    """Every model of the JAX package's ``build_model`` builds, with its
+    arguments; ``depthwise`` wins over the name."""
+    from ecologysemanticsegmentation_torch import models
+
+    kinds = {"deeplabv3plus": models.DeepLabV3Plus,
+             "deeplabv3plus_depthwise": models.DeepLabV3PlusDepthwise, "unet": models.UNet,
+             "vgg_unet": models.VGGUNet, "efficientnet_v2s_unet": models.EfficientNetV2SUNet}
+    assert set(kinds) == set(models.MODEL_NAMES)
+    for name, kind in kinds.items():
+        assert type(est.build_model(name, num_classes=2, device="cpu")) is kind
+    assert type(est.build_model("unet", depthwise=True, device="cpu")) \
+        is models.DeepLabV3PlusDepthwise
+    unet = est.build_model("unet", encoder_name="resnet50", device="cpu")
+    assert unet.encoder.layer1_block0.conv3.weight.shape == (256, 64, 1, 1)
+    vgg = est.build_model("vgg_unet", max_channels=512, deepsupervision=True, remat=True,
+                          device="cpu")
+    assert vgg.encoder.remat and len(vgg.ds_heads) == 5
     with pytest.raises(ValueError):
         est.build_model("no_such_model", device="cpu")
+    with pytest.raises(ValueError, match="encoder"):
+        est.build_model("unet", encoder_name="resnet18", device="cpu")
 
 
 def test_train_step_scope():
-    """Augmentation, the full-resolution loss path and the spatial mesh are
-    ported; deep supervision (VGG) and the multi-step scan are not."""
+    """Augmentation, the full-resolution loss path, deep supervision and the
+    spatial mesh are ported; the multi-step scan is not, nor a model other
+    than DeepLabV3+ on a mesh."""
     model = est.build_model(num_classes=3, device="cpu")
     tx = est.make_optimizer()
     assert callable(est.make_train_step(model, tx, augment=True, lowres_head=True))
     for mode in ("none", "sequential", "general"):
         assert callable(est.make_train_step(model, tx, composite_mode=mode, lowres_head=False))
-    for kwargs, item in [({"deepsupervision": True}, "item 7"), ({"k_steps": 2}, "on purpose")]:
-        with pytest.raises(NotImplementedError, match=item):
-            est.make_train_step(model, tx, **kwargs)
+    assert callable(est.make_train_step(model, tx, deepsupervision=True))
+    with pytest.raises(ValueError, match="deepsupervision"):
+        est.make_train_step(model, tx, deepsupervision=True, lowres_head=True)
+    with pytest.raises(NotImplementedError, match="on purpose"):
+        est.make_train_step(model, tx, k_steps=2)
     with pytest.raises(TypeError, match="parallel.Mesh"):
         est.make_train_step(model, tx, spatial_mesh=object())
     with pytest.raises(ValueError, match="lowres_head"):

@@ -186,8 +186,6 @@ def test_divergence_guard(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--depthwiseconv"], "item 7"),
-    (["--encoder", "resnet50"], "item 7"),
     (["--spatial_partition", "2"], "item 10"),
     (["--ckpt", "orbax"], "item 12"),
 ])
